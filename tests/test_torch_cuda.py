@@ -6,7 +6,11 @@ one.  They import no JAX, so they run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: 1e-5 absolute (float32 sums in another order; the scatter's
-atomic adds in any order); hit counts exactly.
+atomic adds in any order); hit counts exactly.  Gradients: 1e-5 x the
+tensor's largest magnitude (at least 1), since the image gradient's atomic
+adds pile up at the frame's edge.  The kernels take float32 only, so
+``torch.autograd.gradcheck`` (float64) does not apply: the backward kernels
+are held to the autograd of the plain forwards.
 """
 import pytest
 
@@ -99,8 +103,120 @@ def test_dain_cuda_matches_cpu(dev):
     with torch.inference_mode():
         got = gpu(i0.to(dev), i2.to(dev))
         torch.cuda.synchronize()
-        assert all(n == 1 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+        assert kernels.LAUNCHES == {"filter_interpolate_fwd": 1,
+                                    "flow_project_scatter": 1,
+                                    "flow_project_finalize": 1,
+                                    "filter_interpolate_bwd": 0,
+                                    "flow_project_scatter_bwd": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=atol)
+
+
+def _grads_close(name, got, want):
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("c,need_image", [(1, True), (3, True), (16, True),
+                                          (3, False)])
+def test_filter_interpolate_bwd_kernel(dev, c, need_image):
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import filter_interpolation as FI
+    g = torch.Generator().manual_seed(3)
+    n, h, w = 2, 40, 72
+    image = torch.rand(n, c, h, w, generator=g).to(dev)
+    flow = _flow(g, n, h, w, 20.0).to(dev)
+    flow[0, :, 5, w - 9] = torch.tensor([8.0, 0.0], device=dev)  # x2 == W-1
+    filt = torch.randn(n, 16, h, w, generator=g).to(dev)
+    cot = torch.randn(n, c, h, w, generator=g).to(dev)
+
+    def grads(fn):
+        ins = [image.clone().requires_grad_(need_image),
+               flow.clone().requires_grad_(), filt.clone().requires_grad_()]
+        fn(*ins).backward(cot)
+        return [t.grad for t in ins]
+
+    before = dict(kernels.LAUNCHES)
+    got = grads(FI.filter_interpolate)
+    torch.cuda.synchronize()
+    for name in ("filter_interpolate_fwd", "filter_interpolate_bwd"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    want = grads(FI.filter_interpolate_plain)
+    if not need_image:
+        assert got[0] is None and want[0] is None
+    for name, a, b in zip(("image", "flow", "filt"), got, want):
+        if b is not None:
+            _grads_close(name, a, b)
+
+
+@pytest.mark.parametrize("case", ["random", "border"])
+def test_flow_project_scatter_bwd_kernel(dev, case):
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import flow_projection as FP
+    g = torch.Generator().manual_seed(4)
+    n, h, w = 2, 40, 72
+    if case == "random":
+        flow = _flow(g, n, h, w, 12.0)
+    else:
+        # landings on and beyond the last row and column: two of the four
+        # targets are one cell, added to (and read back) twice
+        flow = torch.zeros(n, 2, h, w)
+        flow[:, 1] = 2.25
+        flow[:, 1, h - 1] = 0.0
+        flow[:, 0, :, w - 1] = 0.0
+        flow[1, 0, 3, w - 2] = 1.0
+    flow = flow.to(dev)
+    cot = torch.randn(n, 3, h, w, generator=g).to(dev)
+    out_cot = torch.randn(n, 2, h, w, generator=g).to(dev)
+
+    def grads(fn, c):
+        f = flow.clone().requires_grad_()
+        fn(f).backward(c)
+        return f.grad
+
+    before = kernels.LAUNCHES["flow_project_scatter_bwd"]
+    got = grads(FP.scatter4, cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flow_project_scatter_bwd"] == before + 1
+    _grads_close("scatter4", got, grads(FP.scatter4_plain, cot))
+    proj = lambda f: FP.flow_project(f, hole_fill=False)
+    want = grads(lambda f: FP._count_average(FP.scatter4_plain(f)), out_cot)
+    _grads_close("flow_project", grads(proj, out_cot), want)
+
+
+def test_dain_train_step_cuda_matches_cpu(dev):
+    import copy
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import DAIN
+    from vfidkr_torch.training import TrainConfig, make_optimizer, train_step
+    g = torch.Generator().manual_seed(5)
+    model = DAIN(generator=g)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+        model.flownets.dc_conv7.bias.add_(torch.tensor([0.37, -0.21]))
+    batch = {k: torch.rand(1, 3, 64, 128, generator=g)
+             for k in ("x0", "x1", "y")}
+    cpu = copy.deepcopy(model)
+    gpu = model.to(dev)
+    config = TrainConfig()
+    kernels.reset_launches()
+    got = train_step(gpu, make_optimizer(gpu, config),
+                     {k: v.to(dev) for k, v in batch.items()}, config)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"filter_interpolate_fwd": 1,
+                                "flow_project_scatter": 1,
+                                "flow_project_finalize": 0,
+                                "filter_interpolate_bwd": 1,
+                                "flow_project_scatter_bwd": 1}
+    want = train_step(cpu, make_optimizer(cpu, config), batch, config)
+    torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
+                               atol=0)
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        scale = max(a.grad.abs().max().item(), b.grad.abs().max().item(),
+                    1e-12)
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=5e-3,
+                                   atol=5e-3 * scale, msg=name)

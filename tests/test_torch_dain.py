@@ -109,7 +109,9 @@ def test_cpu_forward_launches_no_kernel(dain_pair):
 
 def test_port_imports_no_jax():
     code = ("import sys, vfidkr_torch, vfidkr_torch.models, "
-            "vfidkr_torch.convert, vfidkr_torch.ops, vfidkr_torch.kernels; "
+            "vfidkr_torch.convert, vfidkr_torch.ops, vfidkr_torch.kernels, "
+            "vfidkr_torch.training, vfidkr_torch.data.vimeo90k, "
+            "vfidkr_torch.apps.train; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'jaxlib')); "
             "assert not bad, bad")

@@ -195,7 +195,7 @@ def test_finalize_averages_and_fills(rng):
 @pytest.mark.parametrize("case", ["random", "border"])
 def test_flow_project_matches_jax(rng, case):
     flow = _proj_flow(rng, scale=8.0) if case == "random" else _border_flow()
-    got = nhwc(flow_project(nchw(flow)))
+    got = nhwc(flow_project(nchw(flow), hole_fill=True))
     want = jax_flow_project(jnp.asarray(flow), hole_fill=True)
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)
     for i in range(flow.shape[0]):

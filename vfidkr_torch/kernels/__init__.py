@@ -13,7 +13,8 @@ import torch
 from vfidkr_torch.kernels import build
 
 KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
-           "flow_project_finalize")
+           "flow_project_finalize", "filter_interpolate_bwd",
+           "flow_project_scatter_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -37,7 +38,8 @@ def check_inputs(name: str, *tensors: torch.Tensor) -> None:
 
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream with ``args`` (tensors
-    become device pointers, ints stay ints); raise if the launch failed."""
+    become device pointers, ``None`` a null pointer, ints stay ints); raise
+    if the launch failed."""
     fn = getattr(build.load_library(), f"vfidkr_{name}")
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a

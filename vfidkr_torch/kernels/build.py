@@ -1,8 +1,8 @@
 """Build the hand-written CUDA kernels of ``vfidkr_torch/csrc`` and load them.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface, on first use, into ``build/vfidkr_torch/`` at the root of the
-checkout.  The file name carries a hash of the sources and the flags, so an
+Each source is compiled by its own ``nvcc``, all of them at once, and the
+objects are linked into one shared library with a plain C interface, on first
+use, into ``build/vfidkr_torch/`` at the root of the checkout.  The file name carries a hash of the sources and the flags, so an
 edited source builds anew and a built one is reused.  The library is loaded
 with ``ctypes``; every entry point takes device pointers, int sizes and the
 CUDA stream, and returns ``cudaGetLastError()`` after its launch.
@@ -26,15 +26,20 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vfidkr_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes: device pointers, int sizes, then the stream.
 SIGNATURES = {
     # image, flow, filt, out, n, c, h, w, stream
     "vfidkr_filter_interpolate_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # image, flow, filt, g, gimage (or NULL), gflow, gfilt, n, c, h, w, stream
+    "vfidkr_filter_interpolate_bwd": [_P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _P],
     # flow, acc, n, h, w, stream
     "vfidkr_flow_project_scatter": [_P, _P, _I, _I, _I, _P],
+    # flow, g, gflow, n, h, w, stream
+    "vfidkr_flow_project_scatter_bwd": [_P, _P, _P, _I, _I, _I, _P],
     # acc, out, n, h, w, stream
     "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _P],
 }
@@ -75,17 +80,33 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: a concurrent or interrupted
-    # build never leaves a partial library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-    os.replace(tmp, lib)
+    # compile into a temporary directory and rename the library: a concurrent
+    # or interrupted build never leaves a partial library under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(src.name)
+        BUILD_LOG = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+        so = Path(tmp) / lib.name
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(so), *(str(o) for _, o, _ in jobs)],
+            capture_output=True, text=True)
+        BUILD_LOG += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"linking failed ({proc.returncode}):\n"
+                               f"{BUILD_LOG}")
+        os.replace(so, lib)
     return lib
 
 

@@ -1,18 +1,21 @@
-"""DAIN eval forward, NCHW float32.
+"""DAIN forward, NCHW float32.
 
 Counterpart of ``DAIN.__call__`` in ``vfidkr_tpu/models/dain.py:119-176``
-with ``train=False`` (reference ``networks/DAIN.py:101-294``), at t = 0.5:
+(reference ``networks/DAIN.py:101-294``), at t = 0.5.  ``model.train()``
+is JAX's ``train=True`` and ``model.eval()`` its ``train=False``; the mode
+selects only the flow projection's hole fill (``hole_fill = not train``,
+as ``FlowProjectionLayer.py:23`` fills only when no gradient is wanted):
 
 1. MonoNet5 and two branch heads on ``cat([i0, i2])``: the 4x4 kernels;
 2. PWC-Net flows in both directions, pyramid shared, directions batched;
 3. ``upsample_bilinear(flows * (20 * 0.5), 4)``;
-4. flow projection with the inference hole fill;
+4. flow projection: holes filled in eval, left at 0 in training;
 5. one filter interpolation of both frames, batched as 2B;
 6. ``cur = ref0 / 2 + ref2 / 2``;
 7. the 45-channel rectifier, added to ``cur``.
 
-Batching both directions means each of the three CUDA kernels launches once
-per forward.  The children carry the reference checkpoint's names
+Batching both directions means each CUDA kernel launches once per forward
+(the hole fill's only in eval) and once per backward.  The children carry the reference checkpoint's names
 (``initScaleNets_filter``, ``initScaleNets_filter1/2``, ``flownets``,
 ``rectifyNet``).
 """
@@ -56,7 +59,7 @@ class DAIN(nn.Module):
         flows = upsample_bilinear(
             torch.cat([raw_fwd, raw_bwd], 0) * (DIV_FLOW * TIMESTEP), 4)
 
-        offs = flow_project(flows)
+        offs = flow_project(flows, hole_fill=not self.training)
         off0, off1 = offs[:b], offs[b:]
 
         refs = filter_interpolate(torch.cat([i0, i2], 0), offs,

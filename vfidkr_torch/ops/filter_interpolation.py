@@ -14,9 +14,17 @@ Per output pixel ``(y, x)`` with flow ``(fx, fy)``:
   ``wy = beta`` for ``dj >= 2`` else ``1 - beta`` (``beta = frac(y2)``), and
   likewise ``wx`` with ``alpha = frac(x2)``.
 
-``filter_interpolate`` launches the CUDA kernel ``filter_interpolate_fwd``
-(``vfidkr_torch/csrc/filter_interpolate.cu``) on CUDA tensors and runs
-``filter_interpolate_plain`` on CPU tensors.  Forward only.
+An invalid pixel's copy carries no gradient, as in the reference backward.
+A landing on the frame's edge (``x2`` = 0 or W-1, ``y2`` = 0 or H-1) takes
+the full flow gradient, as the reference's quadrant difference gives it;
+the JAX package's ``jnp.clip`` halves it there.
+
+On CUDA tensors ``filter_interpolate`` launches the kernel
+``filter_interpolate_fwd`` (``vfidkr_torch/csrc/filter_interpolate.cu``)
+through an autograd Function whose backward is the kernel
+``filter_interpolate_bwd``
+(``vfidkr_torch/csrc/filter_interpolate_bwd.cu``).  On CPU tensors it runs
+``filter_interpolate_plain``, and autograd gives its gradient.
 """
 
 from __future__ import annotations
@@ -78,7 +86,37 @@ def filter_interpolate_plain(image: torch.Tensor, flow: torch.Tensor,
             tap = torch.gather(flat, 2, lin).reshape(n, c, h, w)
             weight = filt[:, dj * FILTER_SIZE + di] * wy * wx
             out = out + weight.unsqueeze(1) * tap
-    return torch.where(valid.unsqueeze(1), out, image)
+    return torch.where(valid.unsqueeze(1), out, image.detach())
+
+
+class _FilterInterpolateKernel(torch.autograd.Function):
+    """Forward ``filter_interpolate_fwd``, backward ``filter_interpolate_bwd``;
+    the image scatter is skipped where the image needs no gradient."""
+
+    @staticmethod
+    def forward(ctx, image, flow, filt):
+        kernels.check_inputs("filter_interpolate_fwd", image, flow, filt)
+        ctx.save_for_backward(image, flow, filt)
+        n, c, h, w = image.shape
+        out = torch.empty_like(image)
+        kernels.launch("filter_interpolate_fwd", image, flow, filt, out,
+                       n, c, h, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        image, flow, filt = ctx.saved_tensors
+        g = g.contiguous()
+        kernels.check_inputs("filter_interpolate_bwd", g, image)
+        need_image, need_flow, need_filt = ctx.needs_input_grad
+        gimage = torch.zeros_like(image) if need_image else None
+        gflow = torch.empty_like(flow)
+        gfilt = torch.empty_like(filt)
+        n, c, h, w = image.shape
+        kernels.launch("filter_interpolate_bwd", image, flow, filt, g, gimage,
+                       gflow, gfilt, n, c, h, w)
+        return (gimage, gflow if need_flow else None,
+                gfilt if need_filt else None)
 
 
 def filter_interpolate(image: torch.Tensor, flow: torch.Tensor,
@@ -88,8 +126,4 @@ def filter_interpolate(image: torch.Tensor, flow: torch.Tensor,
     _check_shapes(image, flow, filt)
     if image.device.type == "cpu":
         return filter_interpolate_plain(image, flow, filt)
-    kernels.check_inputs("filter_interpolate_fwd", image, flow, filt)
-    n, c, h, w = image.shape
-    out = torch.empty_like(image)
-    kernels.launch("filter_interpolate_fwd", image, flow, filt, out, n, c, h, w)
-    return out
+    return _FilterInterpolateKernel.apply(image, flow, filt)

@@ -1,26 +1,30 @@
-"""Flow projection with inference hole fill, NCHW.
+"""Flow projection, NCHW.
 
-Counterpart of ``flow_project(flow, hole_fill=True)`` in
-``vfidkr_tpu/ops/flow_projection.py`` (reference CUDA op
-``flowprojection_cuda_kernel.cu``: forward :29-93, average :95-137, fill
-:141-234).  Per source pixel ``(y, x)`` with flow ``(fx, fy)``: land at
-``x2 = x + fx``, ``y2 = y + fy``; if ``0 <= x2 <= W-1`` and
-``0 <= y2 <= H-1``, add ``(-fx, -fy, 1)`` to the four neighbours
-``(floor(y2) | min(floor(y2)+1, H-1), floor(x2) | min(floor(x2)+1, W-1))``.
-At the right and bottom border the same cell gets two adds, as in the
-reference.  Each cell with a count then takes the mean; a hole takes the mean
-of the nearest filled cells to its left, right, top and bottom.
+Counterpart of ``flow_project`` in ``vfidkr_tpu/ops/flow_projection.py``
+(reference CUDA op ``flowprojection_cuda_kernel.cu``: forward :29-93, average
+:95-137, fill :141-234, backward :237-301).  Per source pixel ``(y, x)`` with
+flow ``(fx, fy)``: land at ``x2 = x + fx``, ``y2 = y + fy``; if
+``0 <= x2 <= W-1`` and ``0 <= y2 <= H-1``, add ``(-fx, -fy, 1)`` to the four
+neighbours ``(floor(y2) | min(floor(y2)+1, H-1), floor(x2) | min(floor(x2)+1,
+W-1))``.  At the right and bottom border the same cell gets two adds, as in
+the reference.  Each cell with a count then takes the mean.  In training the
+holes stay 0 and the gradient flows back through the scatter; at inference a
+hole takes the mean of the nearest filled cells to its left, right, top and
+bottom, and no gradient reaches the flow (JAX's ``stop_gradient``).
 
-Two CUDA kernels carry it on the card:
+Three CUDA kernels carry it on the card:
 
 * ``scatter4``: the scatter into (N,3,H,W) sums, channel 2 the count
-  (``flow_project_scatter``, ``vfidkr_torch/csrc/flow_project_scatter.cu``);
-* ``finalize``: the count average and hole fill
+  (``flow_project_scatter``, ``vfidkr_torch/csrc/flow_project_scatter.cu``)
+  through an autograd Function whose backward is ``flow_project_scatter_bwd``
+  (``vfidkr_torch/csrc/flow_project_scatter_bwd.cu``);
+* ``finalize``: the count average and hole fill, inference only
   (``flow_project_finalize``, ``vfidkr_torch/csrc/flow_project_finalize.cu``).
 
 Each launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors.  The kernel's atomic adds make the summed flow depend on their order
-to the last bits; the count is exact in any order.
+to the last bits; the count is exact in any order.  The training count
+average is plain PyTorch on both devices, as it is XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,16 +68,37 @@ def scatter4_plain(flow: torch.Tensor) -> torch.Tensor:
     return acc.reshape(3, n, h, w).permute(1, 0, 2, 3).contiguous()
 
 
+class _Scatter4Kernel(torch.autograd.Function):
+    """Forward ``flow_project_scatter``, backward ``flow_project_scatter_bwd``
+    (the count channel carries no gradient to the flow)."""
+
+    @staticmethod
+    def forward(ctx, flow):
+        kernels.check_inputs("flow_project_scatter", flow)
+        ctx.save_for_backward(flow)
+        n, _, h, w = flow.shape
+        acc = torch.zeros((n, 3, h, w), dtype=torch.float32,
+                          device=flow.device)
+        kernels.launch("flow_project_scatter", flow, acc, n, h, w)
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        (flow,) = ctx.saved_tensors
+        g = g.contiguous()
+        kernels.check_inputs("flow_project_scatter_bwd", g, flow)
+        n, _, h, w = flow.shape
+        gflow = torch.empty_like(flow)
+        kernels.launch("flow_project_scatter_bwd", flow, g, gflow, n, h, w)
+        return gflow
+
+
 def scatter4(flow: torch.Tensor) -> torch.Tensor:
     """(N,2,H,W) flow -> (N,3,H,W): summed (-fx, -fy) and the hit count."""
     _check_flow(flow)
     if flow.device.type == "cpu":
         return scatter4_plain(flow)
-    kernels.check_inputs("flow_project_scatter", flow)
-    n, _, h, w = flow.shape
-    acc = torch.zeros((n, 3, h, w), dtype=torch.float32, device=flow.device)
-    kernels.launch("flow_project_scatter", flow, acc, n, h, w)
-    return acc
+    return _Scatter4Kernel.apply(flow)
 
 
 def _nearest_filled(out, filled, dim):
@@ -109,20 +134,29 @@ def fill_holes(count: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return torch.where(filled.unsqueeze(1), out, filled_val)
 
 
+def _count_average(acc):
+    """(N,3,H,W) scatter sums -> (N,2,H,W) mean flow, 0 where no hit."""
+    cnt = acc[:, 2:]
+    return torch.where(cnt > 0, acc[:, :2] / cnt.clamp(min=1), 0.0)
+
+
 def finalize_plain(acc: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the count average and hole fill."""
     _check_acc(acc)
-    cnt = acc[:, 2]
-    out = torch.where(cnt.unsqueeze(1) > 0,
-                      acc[:, :2] / cnt.clamp(min=1).unsqueeze(1), 0.0)
-    return fill_holes(cnt, out)
+    return fill_holes(acc[:, 2], _count_average(acc))
 
 
 def finalize(acc: torch.Tensor) -> torch.Tensor:
-    """(N,3,H,W) scatter sums -> (N,2,H,W) averaged, hole-filled flow."""
+    """(N,3,H,W) scatter sums -> (N,2,H,W) averaged, hole-filled flow.
+
+    Inference only: the kernel has no backward, so on CUDA tensors it
+    raises where ``acc`` needs a gradient."""
     _check_acc(acc)
     if acc.device.type == "cpu":
         return finalize_plain(acc)
+    if torch.is_grad_enabled() and acc.requires_grad:
+        raise RuntimeError("flow_project_finalize has no backward: the hole "
+                           "fill takes no gradient (detach its input)")
     kernels.check_inputs("flow_project_finalize", acc)
     n, _, h, w = acc.shape
     out = torch.empty((n, 2, h, w), dtype=torch.float32, device=acc.device)
@@ -130,8 +164,15 @@ def finalize(acc: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def flow_project(flow: torch.Tensor) -> torch.Tensor:
-    """Project a (N,2,H,W) flow onto the target-time grid, with the
-    inference hole fill: ``flow_project(flow, hole_fill=True)`` of the JAX
-    package."""
-    return finalize(scatter4(flow))
+def flow_project(flow: torch.Tensor, hole_fill: bool = False) -> torch.Tensor:
+    """Project a (N,2,H,W) flow onto the target-time grid, as
+    ``flow_project(flow, hole_fill)`` of the JAX package.
+
+    ``hole_fill=False`` is the train projection: holes stay 0, and the
+    gradient reaches the flow through the scatter.  ``hole_fill=True`` is the
+    inference projection: holes are filled, and no gradient reaches the flow
+    (the reference fills only when no gradient is wanted,
+    ``FlowProjectionLayer.py:23``)."""
+    if hole_fill:
+        return finalize(scatter4(flow.detach()))
+    return _count_average(scatter4(flow))
