@@ -1,41 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths, the DAIN eval forward and the DAIN
-train step, on one NVIDIA GPU through its hand-written CUDA kernels, and
-check them.
+"""Drive the PyTorch port's three paths, the DAIN eval forward, the DAIN
+train step and the DAIN_slowmotion 4x eval forward, on one NVIDIA GPU
+through its hand-written CUDA kernels, and check them.
 
 Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises, so the script exits
-non-zero and prints no result line:
+non-zero and prints no result line.  The paths are checked and timed first
+(3-5), the kernel cases next (6), and every torch.profiler session comes
+last (7), since host-bound timings read slower after one:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit as nvidia-smi gives them; turns TF32 off for convolutions and
    matmuls, so the float32 path is held to float32 references;
 2. build: compiles vfidkr_torch/csrc/*.cu with nvcc (into build/, on first
-   use) and loads the library;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the paths' shapes (2 x 256 x 448), with the tolerance stated; the
-   backward kernels against the autograd of the plain forwards;
-4. slice: DAIN eval at full width from seeded random weights, frames
+   use, one nvcc per source, all at once) and loads the library;
+3. slice: DAIN eval at full width from seeded random weights, frames
    (1,3,256,448) on the 8-bit grid; each forward kernel's counter must rise
    by exactly 1 in one forward; the outputs are held to the same model run
-   on the CPU, where every op takes its plain version;
-5. times: CUDA events, DAIN ms/frame (median of 50 after 10 warm-up
-   forwards) and each kernel's time beside its plain version's;
-6. train: DAIN().train() at full width, B=3 triplets of 256x448 made in
+   on the CPU, where every op takes its plain version; its ms/frame (CUDA
+   events, median of 50 after 10 warm-up forwards);
+4. slowmo: DAINSlowMotion(0.25) at full width, the same frames, 3 frames a
+   pair; one forward launches K1, K7, K2 and K3 exactly 3 times each; the
+   outputs are held to the same model on the CPU; ms per forward and per
+   synthesised frame (median of 50 after 10 warm-up), peak memory;
+5. train: DAIN().train() at full width, B=3 triplets of 256x448 made in
    memory; 5 train steps, each launching the forward kernels and the
    backward kernels once and the hole fill never, with a finite loss and
    every Adamax group moved; one eval step (hole fill, no backward kernel);
    one train step's gradients held to the same step on the CPU, per leaf;
    the train step's time (median of 20 after 5 warm-up) and peak memory;
-7. profile: where the train step's time goes: each stage's forward and
-   backward timed alone, the Adamax step, torch.profiler over whole steps
-   (device busy share, the largest device kernels), and the backward
-   kernels' device time per launch;
+6. kernels: each kernel against its plain PyTorch version on the card, at
+   the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
+   projection also depth-weighted), with the tolerance stated; the backward
+   kernels against the autograd of the plain forwards; each case's time per
+   call with the wrapper and its plain version's (CUDA events) and its
+   bound: the larger of its bytes (each input read once, each output
+   written once) at 3.35 TB/s and its operations at 67 TFLOP/s float32;
+7. profile: where the slow-motion forward's and the train step's time goes
+   (each stage alone, the Adamax step, torch.profiler over whole runs: busy
+   share, the largest device kernels), and each kernel case's device time
+   per launch;
 8. one JSON line of the kernels, with each kernel's launches in one eval
-   forward and one train step, then the result line.
+   forward, one train step and one slow-motion forward, then the result
+   line.
 """
 
 from __future__ import annotations
@@ -52,9 +62,10 @@ import torch.nn.functional as F
 
 from vfidkr_torch import kernels
 from vfidkr_torch.kernels import build
-from vfidkr_torch.models import DAIN
+from vfidkr_torch.models import DAIN, DAINSlowMotion
 from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP
 from vfidkr_torch.models.layers import upsample_bilinear
+from vfidkr_torch.models.megadepth import depth_inv_from_log_depth
 from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
@@ -62,10 +73,15 @@ from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
 from vfidkr_torch.training.train_state import GROUPS
 
 N, H, W = 2, 256, 448           # both directions of one 448x256 frame pair
+C_CTX = 196                     # DAIN_slowmotion's context: S2DF + log-depth
 ATOL = 1e-5                     # kernel vs plain, see _compare
 TRAIN_B = 3                     # the reference's training batch
 TRAIN_STEPS = 5
 CPU_B = 1                       # batch of the GPU-against-CPU train step
+SLOWMO_T = 0.25                 # 4x slow motion: 3 frames a pair
+HBM_BYTES_S = 3.35e12           # H100 SXM HBM3
+F32_FLOP_S = 67e12              # H100 SXM float32, CUDA cores
+BF16_FLOP_S = 989e12            # H100 SXM bf16, tensor cores, dense
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -83,11 +99,29 @@ KERNELS = {
     "flow_project_scatter_bwd": (
         "vfidkr_torch/csrc/flow_project_scatter_bwd.cu",
         "vfidkr_tpu/ops/pallas/projection_band_kernel.py:227"),
+    "filter_interpolate_ctx": (
+        "vfidkr_torch/csrc/filter_interpolate_ctx.cu",
+        "vfidkr_tpu/ops/pallas/ctx_gather_kernel.py:160"),
 }
-EVAL_KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
-                "flow_project_finalize")
-TRAIN_KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
-                 "filter_interpolate_bwd", "flow_project_scatter_bwd")
+# launches of each kernel in one run of each path; the others launch none
+PATHS = {
+    "eval_forward": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
+                     "flow_project_finalize": 1},
+    "train_step": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
+                   "filter_interpolate_bwd": 1,
+                   "flow_project_scatter_bwd": 1},
+    "slowmo_forward": {"filter_interpolate_fwd": 3,
+                       "filter_interpolate_ctx": 3,
+                       "flow_project_scatter": 3,
+                       "flow_project_finalize": 3},
+}
+# the case of each kernel that its row of the kernels line reports
+ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
+            "flow_project_scatter": "K2 depth-weighted",
+            "flow_project_finalize": "K3",
+            "filter_interpolate_bwd": "K5 C=3 no image grad",
+            "flow_project_scatter_bwd": "K6",
+            "filter_interpolate_ctx": "K7 C=196"}
 
 
 def phase_device() -> torch.device:
@@ -154,17 +188,76 @@ def make_flow(g: torch.Generator) -> torch.Tensor:
     return flow
 
 
-def phase_kernels(dev: torch.device) -> tuple[dict, dict]:
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _landings(flow, filter_bounds):
+    """Count of pixels whose landing is valid for the warp (with its
+    |f| < size/2 terms) or for the projection."""
+    fx, fy = flow[:, 0], flow[:, 1]
+    x2 = torch.arange(W, device=flow.device) + fx
+    y2 = torch.arange(H, device=flow.device).view(H, 1) + fy
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= W - 1) & (y2 <= H - 1)
+    if filter_bounds:
+        valid &= (fx.abs() < W / 2) & (fy.abs() < H / 2)
+    return int(valid.sum().item())
+
+
+def _k1_direct(image, flow, filt):
+    """K1 launched at any C, past the wrapper's dispatch to K7 above 8
+    channels: to time K1 on the context tensors."""
+    out = torch.empty_like(image)
+    kernels.launch("filter_interpolate_fwd", image, flow, filt, out,
+                   *image.shape)
+    return out
+
+
+def _grad_call(fn, ins, cot):
+    """A backward call: autograd.grad through ``fn``'s graph on ``ins``
+    (the tensors that need a gradient are the leaves)."""
+    out = fn(*ins)
+    leaves = [x for x in ins if x.requires_grad]
+    return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+
+def phase_kernels(dev: torch.device) -> dict:
+    """Each kernel against its plain version.  Returns the cases that
+    phase_call_times and phase_device_times time: kernel, the kernel and
+    plain calls, the error, and the bytes and operations the work needs."""
     g = torch.Generator().manual_seed(0)
     flow = make_flow(g).to(dev)
     image = torch.rand(N, 3, H, W, generator=g).to(dev)
     filt = torch.randn(N, 16, H, W, generator=g).to(dev)
-    err = {}
+    ctx = torch.rand(N, C_CTX, H, W, generator=g).to(dev)
+    depth_inv = (1e-6 + torch.exp(-(torch.rand(N, H, W, generator=g) * 4
+                                    - 1))).to(dev)
+    warp_px = _landings(flow, True)
+    proj_px = _landings(flow, False)
+    cases = {}
 
-    err["filter_interpolate_fwd"] = _compare(
-        "filter_interpolate_fwd", FI.filter_interpolate(image, flow, filt),
-        FI.filter_interpolate_plain(image, flow, filt))
+    def case(key, kernel, fn, plain, err, nbytes, ops):
+        cases[key] = {"kernel": kernel, "fn": fn, "plain": plain, "err": err,
+                      "bytes": nbytes, "ops": ops}
 
+    # the warp: K1 on the frames; K7, and K1 for comparison, on the context
+    for key, kernel, img in (("K1 C=3", "filter_interpolate_fwd", image),
+                             ("K7 C=196", "filter_interpolate_ctx", ctx),
+                             ("K1 C=196", "filter_interpolate_fwd", ctx)):
+        fn = _k1_direct if key == "K1 C=196" else FI.filter_interpolate
+        if key != "K1 C=196" and FI.forward_kernel(img.shape[1]) != kernel:
+            raise AssertionError(f"{key}: the wrapper dispatches to "
+                                 f"{FI.forward_kernel(img.shape[1])}")
+        args = (img, flow, filt)
+        err = _compare(f"{kernel} at {tuple(img.shape)}", fn(*args),
+                       FI.filter_interpolate_plain(*args))
+        # 16 weights of 3 multiplies, then 16 multiply-adds per channel
+        case(key, kernel, lambda fn=fn, a=args: fn(*a),
+             lambda a=args: FI.filter_interpolate_plain(*a), err,
+             _nbytes(img, flow, filt, img),
+             warp_px * (48 + 32 * img.shape[1]))
+
+    # the projection: K2 plain and depth-weighted, then K3
     acc_k = FP.scatter4(flow)
     acc_p = FP.scatter4_plain(flow)
     if not torch.equal(acc_k[:, 2], acc_p[:, 2]):
@@ -173,41 +266,76 @@ def phase_kernels(dev: torch.device) -> tuple[dict, dict]:
           f"(total {acc_k[:, 2].sum().item():.0f}, max per cell "
           f"{acc_k[:, 2].max().item():.0f})")
     cnt = acc_p[:, 2:].clamp(min=1)
-    err["flow_project_scatter"] = _compare(
-        "flow_project_scatter (averaged flow; atomic order)",
-        acc_k[:, :2] / cnt, acc_p[:, :2] / cnt)
+    err = _compare("flow_project_scatter (averaged flow; atomic order)",
+                   acc_k[:, :2] / cnt, acc_p[:, :2] / cnt)
+    case("K2", "flow_project_scatter", lambda: FP.scatter4(flow),
+         lambda: FP.scatter4_plain(flow), err, _nbytes(flow, acc_k),
+         proj_px * 12)
 
     holes = (acc_k[:, 2] <= 0).float().mean().item()
     fin_k = FP.finalize(acc_k)
-    err["flow_project_finalize"] = _compare(
-        f"flow_project_finalize ({holes:.2%} holes)", fin_k,
-        FP.finalize_plain(acc_k))
+    err = _compare(f"flow_project_finalize ({holes:.2%} holes)", fin_k,
+                   FP.finalize_plain(acc_k))
     _compare("flow_project, both kernels vs the plain chain", fin_k,
              FP.finalize_plain(acc_p))
+    case("K3", "flow_project_finalize", lambda: FP.finalize(acc_k),
+         lambda: FP.finalize_plain(acc_k), err, _nbytes(acc_k, fin_k),
+         acc_k[:, 2].numel() * 2)
 
+    print(f"[kernels] depth_inv in [{depth_inv.min().item():.4f}, "
+          f"{depth_inv.max().item():.4f}] (1e-6 + exp(-U(-1, 3)))")
+    wacc_k = FP.scatter4(flow, depth_inv)
+    wacc_p = FP.scatter4_plain(flow, depth_inv)
+    err = max(_compare(f"flow_project_scatter depth-weighted, channel {c} "
+                       f"(weight sum; atomic order)" if c == 2 else
+                       f"flow_project_scatter depth-weighted, channel {c}",
+                       wacc_k[:, c], wacc_p[:, c]) for c in range(3))
+    case("K2 depth-weighted", "flow_project_scatter",
+         lambda: FP.scatter4(flow, depth_inv),
+         lambda: FP.scatter4_plain(flow, depth_inv), err,
+         _nbytes(flow, depth_inv, wacc_k), proj_px * 15)
+    wfin_k = FP.finalize(wacc_k)
+    _compare("flow_project_finalize on the weighted sums", wfin_k,
+             FP.finalize_plain(wacc_k))
+    _compare("depth_flow_project, both kernels vs the plain chain",
+             FP.depth_flow_project(flow, depth_inv, hole_fill=True),
+             FP.finalize_plain(wacc_p))
+
+    # the backward kernels
     cot = torch.randn(N, 3, H, W, generator=g).to(dev)
     fi_k = _grads(FI.filter_interpolate, (image, flow, filt), cot)
     fi_p = _grads(FI.filter_interpolate_plain, (image, flow, filt), cot)
-    err["filter_interpolate_bwd"] = max(
-        _compare_grad(f"filter_interpolate_bwd grad->{name}", a, b)
-        for name, a, b in zip(("image", "flow", "filt"), fi_k, fi_p))
+    err = max(_compare_grad(f"filter_interpolate_bwd grad->{name}", a, b)
+              for name, a, b in zip(("image", "flow", "filt"), fi_k, fi_p))
+    for need_image in (False, True):
+        ins = [image.clone().requires_grad_(need_image),
+               flow.clone().requires_grad_(), filt.clone().requires_grad_()]
+        grads = (image,) if need_image else ()
+        # reads image, flow, filt and the cotangent; writes the gradients
+        case(f"K5 C=3 {'with' if need_image else 'no'} image grad",
+             "filter_interpolate_bwd",
+             _grad_call(FI.filter_interpolate, ins, cot),
+             _grad_call(FI.filter_interpolate_plain, ins, cot), err,
+             _nbytes(image, flow, filt, cot, flow, filt, *grads),
+             warp_px * (100 + 64 * image.shape[1]))
 
     out_cot = torch.randn(N, 2, H, W, generator=g).to(dev)
     fp_k = _grads(lambda f: FP.flow_project(f, hole_fill=False), (flow,),
                   out_cot)
     fp_p = _grads(lambda f: FP._count_average(FP.scatter4_plain(f)),
                   (flow,), out_cot)
-    err["flow_project_scatter_bwd"] = _compare_grad(
+    err = _compare_grad(
         "flow_project_scatter_bwd (flow_project(hole_fill=False) grad->flow)",
         fp_k[0], fp_p[0])
+    acc_cot = torch.randn(N, 3, H, W, generator=g).to(dev)
+    f = flow.clone().requires_grad_()
+    # reads the flow and two cotangent channels, writes the flow gradient
+    case("K6", "flow_project_scatter_bwd",
+         _grad_call(FP.scatter4, [f], acc_cot),
+         _grad_call(FP.scatter4_plain, [f], acc_cot), err,
+         _nbytes(flow, acc_cot[:, :2], flow), proj_px * 8)
     torch.cuda.synchronize()
-    inputs = {"filter_interpolate_fwd": (image, flow, filt),
-              "flow_project_scatter": (flow,),
-              "flow_project_finalize": (acc_k,),
-              "filter_interpolate_bwd": ((image, flow, filt), cot),
-              "flow_project_scatter_bwd": ((flow,), torch.randn(
-                  N, 3, H, W, generator=g).to(dev))}
-    return err, inputs
+    return cases
 
 
 def _grads(fn, inputs, cot):
@@ -230,10 +358,10 @@ def _compare_grad(name, got, want) -> float:
     return err
 
 
-def _check_launches(path, launches, expected) -> None:
-    """Each kernel of ``expected`` launched exactly once, every other none."""
+def _check_launches(path, launches) -> None:
+    """Each kernel launched exactly as often as ``PATHS[path]`` says."""
     for name in KERNELS:
-        want = 1 if name in expected else 0
+        want = PATHS[path].get(name, 0)
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"one {path}, expected {want}")
@@ -244,6 +372,15 @@ def make_model() -> torch.nn.Module:
     no motion, so the flow head's bias is set to a (5.3, -3.1) px move and
     projection and warp shift pixels and leave holes at the frame's edges."""
     model = DAIN(generator=torch.Generator().manual_seed(0))
+    tame(model)
+    with torch.no_grad():
+        model.flownets.dc_conv7.bias.add_(torch.tensor([0.53, -0.31]))
+    return model
+
+
+def make_slowmo_model() -> torch.nn.Module:
+    """DAINSlowMotion(0.25) at full width from seed 0, tamed as DAIN."""
+    model = DAINSlowMotion(SLOWMO_T, generator=torch.Generator().manual_seed(0))
     tame(model)
     with torch.no_grad():
         model.flownets.dc_conv7.bias.add_(torch.tensor([0.53, -0.31]))
@@ -281,6 +418,27 @@ def _violations(got, want, rtol, atol):
     return diff.max().item(), int(bad.sum().item())
 
 
+def _hold_to_cpu(tag, checks) -> None:
+    """Each (name, GPU tensor, CPU tensor, atol) within rtol 1e-3."""
+    failed = []
+    for name, got, want, atol in checks:
+        worst, nbad = _violations(got.cpu(), want, 1e-3, atol)
+        print(f"[{tag}] GPU vs CPU {name}: max |diff| {worst:.3e}, "
+              f"{nbad} elements beyond rtol 1e-3 atol {atol:.0e}")
+        if nbad:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"GPU and CPU forwards disagree: {failed}")
+
+
+def _check_finite(out) -> None:
+    for key, pair in out.items():
+        for t in pair:
+            for x in (t if isinstance(t, list) else [t]):
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"non-finite values in {key}")
+
+
 def phase_slice(dev: torch.device):
     model = make_model().eval().to(dev)
     i0, i2 = make_frames(torch.Generator().manual_seed(1))
@@ -292,11 +450,8 @@ def phase_slice(dev: torch.device):
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
     print(f"[slice] launches in one DAIN eval forward: {launches}")
-    _check_launches("eval forward", launches, EVAL_KERNELS)
-    for key, pair in out.items():
-        for t in pair:
-            if not bool(torch.isfinite(t).all()):
-                raise AssertionError(f"non-finite values in {key}")
+    _check_launches("eval_forward", launches)
+    _check_finite(out)
     rect = out["outputs"][1]
     if tuple(rect.shape) != (1, 3, H, W):
         raise AssertionError(f"rectified shape {tuple(rect.shape)}")
@@ -310,20 +465,24 @@ def phase_slice(dev: torch.device):
         ref = cpu_model(i0, i2)
     if kernels.LAUNCHES != launches:
         raise AssertionError("the CPU forward launched a kernel")
-    checks = [("offsets[0]", out["offsets"][0], ref["offsets"][0], 1e-4),
-              ("offsets[1]", out["offsets"][1], ref["offsets"][1], 1e-4),
-              ("cur_output", out["outputs"][0], ref["outputs"][0], 2e-4),
-              ("rectified", out["outputs"][1], ref["outputs"][1], 2e-4)]
-    failed = []
-    for name, got, want, atol in checks:
-        worst, nbad = _violations(got.cpu(), want, 1e-3, atol)
-        print(f"[slice] GPU vs CPU {name}: max |diff| {worst:.3e}, "
-              f"{nbad} elements beyond rtol 1e-3 atol {atol:.0e}")
-        if nbad:
-            failed.append(name)
-    if failed:
-        raise AssertionError(f"GPU and CPU forwards disagree: {failed}")
-    return model, i0d, i2d, launches
+    _hold_to_cpu("slice", [
+        ("offsets[0]", out["offsets"][0], ref["offsets"][0], 1e-4),
+        ("offsets[1]", out["offsets"][1], ref["offsets"][1], 1e-4),
+        ("cur_output", out["outputs"][0], ref["outputs"][0], 2e-4),
+        ("rectified", out["outputs"][1], ref["outputs"][1], 2e-4)])
+
+    with torch.inference_mode():
+        t = cuda_times_ms(lambda: model(i0d, i2d))
+    ms = statistics.median(t)
+    print(f"[times] DAIN eval 448x256 B=1 float32 TF32 off: {ms:.3f} ms/frame, "
+          f"{1000.0 / ms:.2f} frames/s (median of {len(t)} after 10 "
+          f"warm-up; p80 {_p80(t):.3f} ms, min {t[0]:.3f}, max {t[-1]:.3f})")
+    return launches
+
+
+def _p80(t):
+    """The highest percentile with ten samples beyond it, of 50."""
+    return t[int(0.8 * len(t)) - 1]
 
 
 def cuda_times_ms(fn, warmup=10, iters=50, inner=1) -> list[float]:
@@ -345,59 +504,191 @@ def cuda_times_ms(fn, warmup=10, iters=50, inner=1) -> list[float]:
     return sorted(times)
 
 
-def phase_times(model, i0, i2, inputs) -> dict:
+def phase_slowmo(dev: torch.device):
+    """DAINSlowMotion(0.25) at 448x256: launches, outputs against the CPU."""
+    t0 = time.perf_counter()
+    model = make_slowmo_model().to(dev)
+    i0, i2 = make_frames(torch.Generator().manual_seed(1))
+    i0d, i2d = i0.to(dev), i2.to(dev)
+    with torch.inference_mode():
+        kernels.reset_launches()
+        out = model(i0d, i2d)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        depth_inv = depth_inv_from_log_depth(
+            model.depthNet(torch.cat([i0d, i2d], 0)))
+    print(f"[slowmo] launches in one DAINSlowMotion({SLOWMO_T}) forward: "
+          f"{launches}")
+    _check_launches("slowmo_forward", launches)
+    _check_finite(out)
+    frames, rects = out["outputs"]
+    n_frames = round(1 / SLOWMO_T) - 1
+    if len(frames) != n_frames or len(rects) != n_frames or any(
+            tuple(x.shape) != (1, 3, H, W) for x in frames + rects):
+        raise AssertionError("slow-motion outputs: wrong count or shape")
+    print(f"[slowmo] {n_frames} frames, outputs finite; depth_inv in "
+          f"[{depth_inv.min().item():.4f}, {depth_inv.max().item():.4f}]; "
+          f"max |offset| {out['offsets'][0].abs().max().item():.3f} px; mean "
+          f"rectified {[round(r.mean().item(), 4) for r in rects]}")
+
+    cpu_model = copy.deepcopy(model).cpu()
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu_model(i0, i2)
+    print(f"[slowmo] the CPU forward took {time.perf_counter() - t1:.1f} s")
+    if kernels.LAUNCHES != launches:
+        raise AssertionError("the CPU forward launched a kernel")
+    checks = [(f"offsets[{k}] (last step)", out["offsets"][k],
+               ref["offsets"][k], 1e-4) for k in range(2)]
+    for s in range(n_frames):
+        checks.append((f"step {s} output", frames[s], ref["outputs"][0][s],
+                       2e-4))
+        checks.append((f"step {s} rectified", rects[s], ref["outputs"][1][s],
+                       2e-4))
+    _hold_to_cpu("slowmo", checks)
+    print(f"[slowmo] phase check took {time.perf_counter() - t0:.1f} s")
+    return model, i0d, i2d, launches
+
+
+def phase_slowmo_times(model, i0, i2) -> float:
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         t = cuda_times_ms(lambda: model(i0, i2))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = statistics.median(t)
-    print(f"[times] DAIN eval 448x256 B=1 float32 TF32 off: {ms:.3f} ms/frame, "
-          f"{1000.0 / ms:.2f} frames/s (median of {len(t)} after 10 "
-          f"warm-up; p80 {t[int(0.8 * len(t)) - 1]:.3f} ms, min {t[0]:.3f}, "
-          f"max {t[-1]:.3f})")
-    pairs = {
-        "filter_interpolate_fwd": (FI.filter_interpolate,
-                                   FI.filter_interpolate_plain),
-        "flow_project_scatter": (FP.scatter4, FP.scatter4_plain),
-        "flow_project_finalize": (FP.finalize, FP.finalize_plain),
-    }
-    times = {}
+    k = model.num_frames
+    print(f"[times] DAINSlowMotion({SLOWMO_T}) 448x256 B=1 float32 TF32 off: "
+          f"{ms:.3f} ms/forward, {ms / k:.3f} ms per synthesised frame "
+          f"({k} a forward; median of {len(t)} after 10 warm-up; p80 "
+          f"{_p80(t):.3f} ms, min {t[0]:.3f}, max {t[-1]:.3f} ms/forward); "
+          f"peak memory {peak:.3f} GiB")
+    return ms
+
+
+def _busy(events):
+    """(busy, span) in us: the union of the device intervals, and the
+    window from the first start to the last end."""
+    busy, run_s, run_e = 0.0, None, None
+    for s0, e0, _ in events:
+        if run_e is None or s0 > run_e:
+            busy += 0.0 if run_e is None else run_e - run_s
+            run_s, run_e = s0, e0
+        else:
+            run_e = max(run_e, e0)
+    busy += run_e - run_s
+    return busy, events[-1][1] - events[0][0]
+
+
+def _device_events(prof):
+    """(start, end, name) in us of every device kernel and copy, sorted; the
+    user annotations that the profiler also puts on the device timeline
+    (``Optimizer.step#Adamax.step``) are left out."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+
+
+def _profile_whole(unit, fn, reps, kernel_names):
+    """torch.profiler over ``reps`` calls of ``fn``: device events a call,
+    the busy and idle share, each named kernel's device time, the largest
+    device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    if not events:
+        raise AssertionError("torch.profiler recorded no device events")
+    busy, span = _busy(events)
+    print(f"[profile] {reps} {unit}s under torch.profiler: "
+          f"{len(events) // reps} device events a {unit}, busy "
+          f"{busy / 1000 / reps:.3f} ms of a {span / 1000 / reps:.3f} ms "
+          f"window a {unit}: idle {1 - busy / span:.1%}")
+    for name in kernel_names:
+        ts = [e - s0 for s0, e, n in events if f"{name}_kernel" in n]
+        print(f"[profile] {name} in the {unit}: {len(ts) // reps} launches "
+              f"a {unit}, {statistics.median(ts):.2f} us median device time")
+    names = {n for _, _, n in events}
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.key in names),
+                 key=lambda e: -e.self_device_time_total)[:12]
+    for e in top:
+        ms = e.self_device_time_total / 1000 / reps
+        print(f"[profile] top device kernel: {ms:8.3f} ms a {unit}, "
+              f"{e.count // reps:5d} launches a {unit}, {e.key[:90]}")
+
+
+def phase_slowmo_profile(dev, forward_ms) -> None:
+    """Where the slow-motion forward's time goes, on the model and frames
+    of phase_slowmo made anew: each stage on its own inputs (CUDA events,
+    median of 15 after 3 warm-up), then torch.profiler over whole
+    forwards."""
+    t0 = time.perf_counter()
+    model = make_slowmo_model().to(dev)
+    i0, i2 = (x.to(dev) for x in make_frames(torch.Generator().manual_seed(1)))
+    b = i0.shape[0]
     with torch.inference_mode():
-        for name, (kernel_fn, plain_fn) in pairs.items():
-            args = inputs[name]
-            t_plain = statistics.median(
-                cuda_times_ms(lambda: plain_fn(*args), inner=10))
-            t_kernel = statistics.median(
-                cuda_times_ms(lambda: kernel_fn(*args), inner=10))
-            times[name] = (t_kernel, t_plain)
-            print(f"[times] {name} at {tuple(args[0].shape)}: kernel "
-                  f"{t_kernel * 1000:.1f} us, plain {t_plain * 1000:.1f} us "
-                  f"per call, wrapper included (median of 50 x 10 calls)")
-    # a backward call: autograd.grad through the kernel's Function, against
-    # the same through the plain forward's graph
-    backward = {
-        "filter_interpolate_bwd": (FI.filter_interpolate,
-                                   FI.filter_interpolate_plain),
-        "flow_project_scatter_bwd": (FP.scatter4, FP.scatter4_plain),
-    }
-    for name, (kernel_fn, plain_fn) in backward.items():
-        ins, cot = inputs[name]
-        ins = [t.detach().clone().requires_grad_() for t in ins]
-        # the frames of the train path need no gradient: the image scatter
-        # is skipped there, and timed so
-        if name == "filter_interpolate_bwd":
-            ins[0].requires_grad_(False)
-        t = {}
-        for kind, fn in (("plain", plain_fn), ("kernel", kernel_fn)):
-            out = fn(*ins)
-            leaves = [x for x in ins if x.requires_grad]
-            t[kind] = statistics.median(cuda_times_ms(
-                lambda: torch.autograd.grad(out, leaves, cot,
-                                            retain_graph=True), inner=10))
-        times[name] = (t["kernel"], t["plain"])
-        print(f"[times] {name} at {tuple(ins[0].shape)}: kernel "
-              f"{t['kernel'] * 1000:.1f} us, plain {t['plain'] * 1000:.1f} "
-              f"us per backward call, autograd included (median of 50 x 10 "
-              f"calls)")
-    return times
+        frames = torch.cat([i0, i2], 0)
+        log_depth = model.depthNet(frames)
+        depth_inv = depth_inv_from_log_depth(log_depth)
+        ctx = torch.cat([model.ctxNet(frames), log_depth], 1)
+        trunk = model.initScaleNets_filter(torch.cat([i0, i2], 1))
+        filt0 = model.initScaleNets_filter1(trunk)
+        filt1 = model.initScaleNets_filter2(trunk)
+        filt = torch.cat([filt0, filt1], 0)
+        raw_fwd, raw_bwd = model.flownets.bidirectional(i0, i2)
+
+        def heads():
+            tr = model.initScaleNets_filter(torch.cat([i0, i2], 1))
+            return (model.initScaleNets_filter1(tr),
+                    model.initScaleNets_filter2(tr))
+
+        def project(t, t_rev):
+            flows = upsample_bilinear(torch.cat(
+                [raw_fwd * (DIV_FLOW * t), raw_bwd * (DIV_FLOW * t_rev)], 0), 4)
+            return FP.depth_flow_project(flows, depth_inv, hole_fill=True)
+
+        def frame_warp(offs, t):
+            refs = FI.filter_interpolate(frames, offs, filt)
+            return refs, refs[:b] * (1.0 - t) + refs[b:] * t
+
+        stages = [("MegaDepth", lambda: model.depthNet(frames)),
+                  ("S2DF", lambda: model.ctxNet(frames)),
+                  ("MonoNet5 + 2 heads", heads),
+                  ("PWC-Net bidirectional",
+                   lambda: model.flownets.bidirectional(i0, i2))]
+        steps = [k * SLOWMO_T for k in range(1, 1 + model.num_frames)]
+        for k, (t, t_rev) in enumerate(zip(steps, steps[::-1])):
+            offs = project(t, t_rev)
+            ctx_w = FI.filter_interpolate(ctx, offs, filt)
+            refs, out = frame_warp(offs, t)
+            rect_in = torch.cat([out, refs[:b], refs[b:], offs[:b], offs[b:],
+                                 filt0, filt1, ctx_w[:b], ctx_w[b:]], 1)
+            stages += [
+                (f"step {k} (t={t}) upsample + depth projection (K2, K3)",
+                 lambda t=t, t_rev=t_rev: project(t, t_rev)),
+                (f"step {k} ctx warp (K7)",
+                 lambda o=offs: FI.filter_interpolate(ctx, o, filt)),
+                (f"step {k} frame warp (K1) + blend",
+                 lambda o=offs, t=t: frame_warp(o, t)),
+                (f"step {k} rectifier",
+                 lambda x=rect_in, o=out: model.rectifyNet(x) + o)]
+        total = 0.0
+        for name, fn in stages:
+            ms = statistics.median(cuda_times_ms(fn, 3, 15))
+            total += ms
+            print(f"[profile] slowmo stage {name}: {ms:.3f} ms")
+        print(f"[profile] slowmo stage sum {total:.3f} ms; the whole forward "
+              f"{forward_ms:.3f} ms")
+        _profile_whole("slow-motion forward", lambda: model(i0, i2), 3,
+                       ("filter_interpolate_fwd", "filter_interpolate_ctx",
+                        "flow_project_scatter", "flow_project_finalize"))
+    print(f"[profile] slowmo profile took {time.perf_counter() - t0:.1f} s")
 
 
 def make_triplets(g: torch.Generator, b: int):
@@ -426,7 +717,7 @@ def phase_train(dev: torch.device):
         m = train_step(model, opt, batch, config)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        _check_launches("train step", launches, TRAIN_KERNELS)
+        _check_launches("train_step", launches)
         total = float(m["total"])
         if not math.isfinite(total):
             raise AssertionError(f"train step {step}: loss {total}")
@@ -448,7 +739,7 @@ def phase_train(dev: torch.device):
     m = eval_step(model, batch, config)
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
-    _check_launches("eval step", eval_launches, EVAL_KERNELS)
+    _check_launches("eval_forward", eval_launches)
     if not math.isfinite(float(m["total"])):
         raise AssertionError(f"eval step: loss {float(m['total'])}")
     print(f"[train] eval step: loss {float(m['total']):.6f}, psnr "
@@ -521,23 +812,10 @@ def _stage_ms(model, fwd, inputs, need_grad) -> tuple[float, float]:
     return t_f, t_fb - t_f
 
 
-def _device_events(prof):
-    """(start, end, name) in us of every device kernel and copy, sorted; the
-    user annotations that the profiler also puts on the device timeline
-    (``Optimizer.step#Adamax.step``) are left out."""
-    from torch.autograd import DeviceType
-    return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False))
-
-
-def phase_train_profile(model, opt, batch, step_ms, inputs) -> None:
+def phase_train_profile(model, opt, batch, step_ms) -> None:
     """Where the train step's time goes: each stage's forward and backward
-    on its own inputs, the Adamax step, whole steps under torch.profiler,
-    and the backward kernels' device time at the kernel check's shapes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    on its own inputs, the Adamax step, and whole steps under
+    torch.profiler."""
     x0, x1 = batch["x0"], batch["x1"]
     b = x0.shape[0]
     model.train()
@@ -586,88 +864,106 @@ def phase_train_profile(model, opt, batch, step_ms, inputs) -> None:
     print(f"[profile] stage sums: forward {sum_f:.3f} ms, backward "
           f"{sum_b:.3f} ms, with Adamax {sum_f + sum_b + t_opt:.3f} ms; the "
           f"whole step {step_ms:.3f} ms")
+    _profile_whole("train step",
+                   lambda: train_step(model, opt, batch, config), 3,
+                   tuple(PATHS["train_step"]))
 
-    steps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            train_step(model, opt, batch, config)
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    if not events:
-        raise AssertionError("torch.profiler recorded no device events")
-    busy, run_s, run_e = 0.0, None, None
-    for s0, e0, _ in events:          # union of the device intervals
-        if run_e is None or s0 > run_e:
-            busy += 0.0 if run_e is None else run_e - run_s
-            run_s, run_e = s0, e0
-        else:
-            run_e = max(run_e, e0)
-    busy += run_e - run_s
-    span = events[-1][1] - events[0][0]
-    print(f"[profile] {steps} train steps under torch.profiler: "
-          f"{len(events) // steps} device events a step, busy "
-          f"{busy / 1000 / steps:.3f} ms of a {span / 1000 / steps:.3f} ms "
-          f"window a step: idle {1 - busy / span:.1%}")
-    for name in TRAIN_KERNELS:
-        ts = [e - s0 for s0, e, n in events if f"{name}_kernel" in n]
-        print(f"[profile] {name} in the train step: {len(ts) // steps} "
-              f"launches a step, {statistics.median(ts):.2f} us median device "
-              f"time")
-    names = {n for _, _, n in events}
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.key in names),
-                 key=lambda e: -e.self_device_time_total)[:12]
-    for e in top:
-        ms = e.self_device_time_total / 1000 / steps
-        print(f"[profile] top device kernel: {ms:8.3f} ms a step, "
-              f"{e.count // steps:5d} launches a step, {e.key[:90]}")
 
-    (image, flow, filt), cot = inputs["filter_interpolate_bwd"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for need_image in (True, False):
-            ins = [image.clone().requires_grad_(need_image),
-                   flow.clone().requires_grad_(), filt.clone().requires_grad_()]
-            for _ in range(10):
-                FI.filter_interpolate(*ins).backward(cot)
+def phase_call_times(cases) -> dict:
+    """Per case: the time per call with the wrapper and the plain
+    version's (CUDA events), and the bound."""
+    times = {}
+    for key, c in cases.items():
+        inner = 10 if c["bytes"] < 1e8 else 1
+        call = statistics.median(cuda_times_ms(c["fn"], inner=inner))
+        plain = statistics.median(cuda_times_ms(c["plain"], inner=inner))
+        t_bytes = c["bytes"] / HBM_BYTES_S * 1e3
+        t_ops = c["ops"] / F32_FLOP_S * 1e3
+        times[key] = {"call_ms": call, "plain_ms": plain,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"[times] {key} ({c['kernel']}): per call {call * 1000:.1f} us "
+              f"with the wrapper, plain {plain * 1000:.1f} us (CUDA events, "
+              f"median of 50 x {inner}); bound "
+              f"{times[key]['bound_ms'] * 1000:.2f} us by "
+              f"{times[key]['bound_by']} ({c['bytes'] / 1e6:.2f} MB, "
+              f"{c['ops'] / 1e9:.3f} GFLOP)")
+    # K4 (fused_resblocks, the bf16 lane's rectifier trunk) is not ported
+    # yet: its bound at the DAIN eval shapes, 6 3x3 128->128 convs on
+    # (1,128,256,448), bf16 in and out
+    ops = 6 * 2 * 128 * 128 * 9 * H * W
+    nbytes = 2 * (2 * 128 * H * W + 6 * 128 * 128 * 9)
+    print(f"[times] K4 fused_resblocks (still to port) at (1, 128, {H}, {W}): "
+          f"bound {max(ops / BF16_FLOP_S, nbytes / HBM_BYTES_S) * 1e6:.2f} "
+          f"us by operations ({ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; "
+          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s: "
+          f"{nbytes / HBM_BYTES_S * 1e6:.2f} us)")
+    return times
+
+
+def phase_device_times(cases, times) -> None:
+    """Per case: the device time per launch (torch.profiler), beside the
+    bound; into ``times[case]["ms"]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for key, c in cases.items():
+        # the profiler may drop a session's first events: 20 calls, and the
+        # median of what it records, at least 10 launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                c["fn"]()
             torch.cuda.synchronize()
-        f = flow.clone().requires_grad_()
-        for _ in range(10):
-            FP.scatter4(f).backward(inputs["flow_project_scatter_bwd"][1])
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    k5 = [e - s0 for s0, e, n in events
-          if "filter_interpolate_bwd_kernel" in n]
-    k6 = [e - s0 for s0, e, n in events
-          if "flow_project_scatter_bwd_kernel" in n]
-    print(f"[profile] filter_interpolate_bwd at {tuple(image.shape)}: median "
-          f"device time {statistics.median(k5[:10]):.2f} us with the image "
-          f"gradient, {statistics.median(k5[10:]):.2f} us without")
-    print(f"[profile] flow_project_scatter_bwd at {tuple(flow.shape)}: median "
-          f"device time {statistics.median(k6):.2f} us")
+        dev_us = [e - s0 for s0, e, n in _device_events(prof)
+                  if f"{c['kernel']}_kernel" in n]
+        if not 10 <= len(dev_us) <= 20:
+            raise AssertionError(f"{key}: {len(dev_us)} launches of "
+                                 f"{c['kernel']} recorded in 20 calls")
+        ms = times[key]["ms"] = statistics.median(dev_us) / 1000
+        bound = times[key]["bound_ms"]
+        print(f"[times] {key} ({c['kernel']}): device {ms * 1000:.2f} us a "
+              f"launch (median of {len(dev_us)}), bound {bound * 1000:.2f} "
+              f"us: {bound / ms:.1%} of it")
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
-    err, inputs = phase_kernels(dev)
-    model, i0, i2, launches = phase_slice(dev)
-    times = phase_times(model, i0, i2, inputs)
-    del model
+    # the paths first, checked and timed before any kernel case or profiler
+    # session: after torch.profiler, host-bound timings read slower
+    eval_launches = phase_slice(dev)
+    model, i0, i2, slowmo_launches = phase_slowmo(dev)
+    slowmo_ms = phase_slowmo_times(model, i0, i2)
+    del model, i0, i2
     train_model, opt, batch, train_launches = phase_train(dev)
     phase_train_vs_cpu(dev)
     step_ms = phase_train_times(train_model, opt, batch)
-    phase_train_profile(train_model, opt, batch, step_ms, inputs)
-    per_path = {"eval_forward": launches, "train_step": train_launches}
-    print(f"[launches] one eval forward: {launches}; one train step: "
-          f"{train_launches}")
-    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name] + train_launches[name],
-             "launches_per_path": {path: n[name]
-                                   for path, n in per_path.items()},
-             "max_abs_err": err[name],
-             "ms": times[name][0], "plain_ms": times[name][1]}
-            for name, (src, rep) in KERNELS.items()]
+    print(f"[time] the paths checked and timed: "
+          f"{time.perf_counter() - t0:.1f} s")
+    cases = phase_kernels(dev)
+    times = phase_call_times(cases)
+    phase_slowmo_profile(dev, slowmo_ms)
+    phase_train_profile(train_model, opt, batch, step_ms)
+    phase_device_times(cases, times)
+    done = {key: {"kernel": c["kernel"], "max_abs_err": c["err"], **times[key]}
+            for key, c in cases.items()}
+    per_path = {"eval_forward": eval_launches, "train_step": train_launches,
+                "slowmo_forward": slowmo_launches}
+    print(f"[launches] {per_path}")
+    rows = []
+    for name, (src, rep) in KERNELS.items():
+        main_case = ROW_CASE[name]
+        fields = lambda key: {k: v for k, v in done[key].items()
+                              if k != "kernel"}
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sum(n[name] for n in per_path.values()),
+            "launches_per_path": {p: n[name] for p, n in per_path.items()},
+            "case": main_case, **fields(main_case), "library_ms": None,
+            "other_cases": [{"case": key, **fields(key)}
+                            for key, c in done.items()
+                            if c["kernel"] == name and key != main_case]})
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

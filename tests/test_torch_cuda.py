@@ -6,7 +6,8 @@ one.  They import no JAX, so they run on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerance: 1e-5 absolute (float32 sums in another order; the scatter's
-atomic adds in any order); hit counts exactly.  Gradients: 1e-5 x the
+atomic adds in any order); hit counts exactly; the depth-weighted scatter's
+sums, weight sum included, and its average relative to max(1, |plain|).  Gradients: 1e-5 x the
 tensor's largest magnitude (at least 1), since the image gradient's atomic
 adds pile up at the frame's edge.  The kernels take float32 only, so
 ``torch.autograd.gradcheck`` (float64) does not apply: the backward kernels
@@ -38,8 +39,10 @@ def _flow(g, n, h, w, scale):
     return flow
 
 
-@pytest.mark.parametrize("c", [3, 16])
+@pytest.mark.parametrize("c", [3, 8, 16, 196])
 def test_filter_interpolate_kernel(dev, c):
+    """K1 up to 8 channels, K7 (the context warp) beyond; an invalid pixel
+    copies all channels."""
     from vfidkr_torch import kernels
     from vfidkr_torch.ops import filter_interpolation as FI
     g = torch.Generator().manual_seed(0)
@@ -47,12 +50,17 @@ def test_filter_interpolate_kernel(dev, c):
     image = torch.rand(n, c, h, w, generator=g).to(dev)
     flow = _flow(g, n, h, w, 20.0).to(dev)
     filt = torch.randn(n, 16, h, w, generator=g).to(dev)
-    before = kernels.LAUNCHES["filter_interpolate_fwd"]
+    name = FI.forward_kernel(c)
+    assert name == ("filter_interpolate_fwd" if c <= 8
+                    else "filter_interpolate_ctx")
+    before = dict(kernels.LAUNCHES)
     got = FI.filter_interpolate(image, flow, filt)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["filter_interpolate_fwd"] == before + 1
+    assert {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]} == {name: 1}
     want = FI.filter_interpolate_plain(image, flow, filt)
     assert (got - want).abs().max().item() <= ATOL
+    assert torch.equal(got[0, :, 2, 0], image[0, :, 2, 0])   # |fx| == W/2
 
 
 def test_flow_project_kernels(dev):
@@ -71,6 +79,35 @@ def test_flow_project_kernels(dev):
     cnt = acc_p[:, 2:].clamp(min=1)
     assert (acc[:, :2] / cnt - acc_p[:, :2] / cnt).abs().max().item() <= ATOL
     assert (out - FP.finalize_plain(acc)).abs().max().item() <= ATOL
+
+
+def test_depth_flow_project_kernels(dev):
+    """K2 with a weight, then K3, against the plain versions, on a smooth
+    flow (a random one sums flows of both signs into one cell, and the
+    relative error of a sum near 0 is unbounded)."""
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import flow_projection as FP
+    g = torch.Generator().manual_seed(6)
+    n, h, w = 2, 40, 72
+    coarse = (torch.rand(n, 2, 3, 5, generator=g) * 2 - 1) * 12
+    flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=True).to(dev)
+    depth_inv = (1e-6 + torch.exp(-(torch.rand(n, h, w, generator=g) * 4 - 1))
+                 ).to(dev)
+    before = dict(kernels.LAUNCHES)
+    acc = FP.scatter4(flow, depth_inv)
+    out = FP.depth_flow_project(flow, depth_inv, hole_fill=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flow_project_scatter"] == (
+        before["flow_project_scatter"] + 2)
+    assert kernels.LAUNCHES["flow_project_finalize"] == (
+        before["flow_project_finalize"] + 1)
+    acc_p = FP.scatter4_plain(flow, depth_inv)
+    assert bool((acc_p[:, 2] <= 0).any())                   # holes to fill
+    for got, want in ((acc, acc_p), (FP.finalize(acc), FP.finalize_plain(acc)),
+                      (out, FP.finalize_plain(acc_p))):
+        assert ((got - want).abs() / want.abs().clamp(min=1)).max() <= ATOL
 
 
 def test_kernels_reject_bad_inputs(dev):
@@ -107,7 +144,8 @@ def test_dain_cuda_matches_cpu(dev):
                                     "flow_project_scatter": 1,
                                     "flow_project_finalize": 1,
                                     "filter_interpolate_bwd": 0,
-                                    "flow_project_scatter_bwd": 0}
+                                    "flow_project_scatter_bwd": 0,
+                                    "filter_interpolate_ctx": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -142,7 +180,7 @@ def test_filter_interpolate_bwd_kernel(dev, c, need_image):
     before = dict(kernels.LAUNCHES)
     got = grads(FI.filter_interpolate)
     torch.cuda.synchronize()
-    for name in ("filter_interpolate_fwd", "filter_interpolate_bwd"):
+    for name in (FI.forward_kernel(c), "filter_interpolate_bwd"):
         assert kernels.LAUNCHES[name] == before[name] + 1
     want = grads(FI.filter_interpolate_plain)
     if not need_image:
@@ -211,7 +249,8 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "flow_project_scatter": 1,
                                 "flow_project_finalize": 0,
                                 "filter_interpolate_bwd": 1,
-                                "flow_project_scatter_bwd": 1}
+                                "flow_project_scatter_bwd": 1,
+                                "filter_interpolate_ctx": 0}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -220,3 +259,35 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                     1e-12)
         torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=5e-3,
                                    atol=5e-3 * scale, msg=name)
+
+
+def test_dain_slowmotion_cuda_matches_cpu(dev):
+    import copy
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import DAINSlowMotion
+    g = torch.Generator().manual_seed(7)
+    model = DAINSlowMotion(timestep=0.25, generator=g)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+        model.flownets.dc_conv7.bias.add_(torch.tensor([0.37, -0.21]))
+    i0 = torch.rand(1, 3, 64, 128, generator=g)
+    i2 = torch.rand(1, 3, 64, 128, generator=g)
+    cpu = copy.deepcopy(model)
+    gpu = model.to(dev)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = gpu(i0.to(dev), i2.to(dev))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {"filter_interpolate_fwd": 3,
+                                    "flow_project_scatter": 3,
+                                    "flow_project_finalize": 3,
+                                    "filter_interpolate_bwd": 0,
+                                    "flow_project_scatter_bwd": 0,
+                                    "filter_interpolate_ctx": 3}
+        want = cpu(i0, i2)
+    for a, b in zip(got["offsets"], want["offsets"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+    for frames_a, frames_b in zip(got["outputs"], want["outputs"]):
+        for a, b in zip(frames_a, frames_b):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-4)

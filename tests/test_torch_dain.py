@@ -9,8 +9,10 @@ the reference's (all x0.5, biases jittered) and carried over by
 the offsets, 2e-4 for the frames).
 """
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -108,17 +110,30 @@ def test_cpu_forward_launches_no_kernel(dain_pair):
 
 
 def test_port_imports_no_jax():
+    """Neither JAX nor any module of the JAX package: not when the port's
+    modules are imported, and not in any import statement of its sources or
+    of chip_smoke.py (an import inside a function runs only when called)."""
     code = ("import sys, vfidkr_torch, vfidkr_torch.models, "
+            "vfidkr_torch.models.megadepth, vfidkr_torch.models.s2df, "
             "vfidkr_torch.convert, vfidkr_torch.ops, vfidkr_torch.kernels, "
             "vfidkr_torch.training, vfidkr_torch.data.vimeo90k, "
             "vfidkr_torch.apps.train; "
-            "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'flax', 'jaxlib')); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'jaxlib', 'vfidkr_tpu')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(vfidkr_tpu|jax|flax|jaxlib)\b", re.M)
+    sources = sorted(Path(REPO, "vfidkr_torch").rglob("*.py"))
+    sources.append(Path(REPO, "chip_smoke.py"))
+    assert len(sources) > 20
+    bad = [f"{src.relative_to(REPO)}: {m.group(0).strip()}"
+           for src in sources for m in pattern.finditer(src.read_text())]
+    assert not bad, bad
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -160,7 +160,7 @@ def test_kernel_wrappers_join_the_graph_or_raise(fake_kernels):
 
 def _plain_launch(name, *args):
     """Each kernel's contract, computed by the plain versions on the CPU."""
-    if name == "filter_interpolate_fwd":
+    if name in ("filter_interpolate_fwd", "filter_interpolate_ctx"):
         image, flow, filt, out = args[:4]
         out.copy_(FI.filter_interpolate_plain(image, flow, filt))
     elif name == "filter_interpolate_bwd":
@@ -174,8 +174,8 @@ def _plain_launch(name, *args):
         gflow.copy_(gf)
         gfilt.copy_(gk)
     elif name == "flow_project_scatter":
-        flow, acc = args[:2]
-        acc.add_(FP.scatter4_plain(flow))
+        flow, weight, acc = args[:3]
+        acc.add_(FP.scatter4_plain(flow, weight))
     elif name == "flow_project_scatter_bwd":
         flow, g, gflow = args[:3]
         f = flow.detach().requires_grad_()

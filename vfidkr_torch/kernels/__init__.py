@@ -14,7 +14,7 @@ from vfidkr_torch.kernels import build
 
 KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
            "flow_project_finalize", "filter_interpolate_bwd",
-           "flow_project_scatter_bwd")
+           "flow_project_scatter_bwd", "filter_interpolate_ctx")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

@@ -2,8 +2,9 @@
 
 Each source is compiled by its own ``nvcc``, all of them at once, and the
 objects are linked into one shared library with a plain C interface, on first
-use, into ``build/vfidkr_torch/`` at the root of the checkout.  The file name carries a hash of the sources and the flags, so an
-edited source builds anew and a built one is reused.  The library is loaded
+use, into ``build/vfidkr_torch/`` at the root of the checkout.  The file
+name carries a hash of the sources and the flags, so an edited source builds
+anew and a built one is reused.  The library is loaded
 with ``ctypes``; every entry point takes device pointers, int sizes and the
 CUDA stream, and returns ``cudaGetLastError()`` after its launch.
 
@@ -36,8 +37,10 @@ SIGNATURES = {
     # image, flow, filt, g, gimage (or NULL), gflow, gfilt, n, c, h, w, stream
     "vfidkr_filter_interpolate_bwd": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _P],
-    # flow, acc, n, h, w, stream
-    "vfidkr_flow_project_scatter": [_P, _P, _I, _I, _I, _P],
+    # image, flow, filt, out, n, c, h, w, stream
+    "vfidkr_filter_interpolate_ctx": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # flow, weight (or NULL), acc, n, h, w, stream
+    "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _P],
     # flow, g, gflow, n, h, w, stream
     "vfidkr_flow_project_scatter_bwd": [_P, _P, _P, _I, _I, _I, _P],
     # acc, out, n, h, w, stream

@@ -1,4 +1,4 @@
-"""DAIN forward, NCHW float32.
+"""DAIN and DAIN_slowmotion forwards, NCHW float32.
 
 Counterpart of ``DAIN.__call__`` in ``vfidkr_tpu/models/dain.py:119-176``
 (reference ``networks/DAIN.py:101-294``), at t = 0.5.  ``model.train()``
@@ -15,9 +15,10 @@ as ``FlowProjectionLayer.py:23`` fills only when no gradient is wanted):
 7. the 45-channel rectifier, added to ``cur``.
 
 Batching both directions means each CUDA kernel launches once per forward
-(the hole fill's only in eval) and once per backward.  The children carry the reference checkpoint's names
-(``initScaleNets_filter``, ``initScaleNets_filter1/2``, ``flownets``,
-``rectifyNet``).
+(the hole fill's only in eval) and once per backward.  The children carry
+the reference checkpoint's names (``initScaleNets_filter``,
+``initScaleNets_filter1/2``, ``flownets``, ``rectifyNet``; DAIN_slowmotion
+adds ``ctxNet`` and ``depthNet``).
 """
 
 from __future__ import annotations
@@ -26,10 +27,14 @@ import torch
 from torch import nn
 
 from vfidkr_torch.models.layers import upsample_bilinear
+from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
+                                           depth_inv_from_log_depth)
 from vfidkr_torch.models.mononet import BranchHead, MonoNet5
 from vfidkr_torch.models.pwcnet import PWCDCNet
 from vfidkr_torch.models.resblock import MultipleBasicBlock
-from vfidkr_torch.ops import filter_interpolate, flow_project
+from vfidkr_torch.models.s2df import S2DF
+from vfidkr_torch.ops import (depth_flow_project, filter_interpolate,
+                              flow_project)
 
 DIV_FLOW = 20.0
 TIMESTEP = 0.5
@@ -71,5 +76,94 @@ class DAIN(nn.Module):
             [cur_output, ref0, ref2, off0, off1, filt0, filt1], 1)
         rectified = self.rectifyNet(rectify_input) + cur_output
         return {"outputs": [cur_output, rectified],
+                "offsets": [off0, off1],
+                "filters": [filt0, filt1]}
+
+
+class DAINSlowMotion(nn.Module):
+    """DAIN_slowmotion: ``1 / timestep - 1`` frames between i0 and i2, at
+    t = timestep, 2 timestep, ...; evaluation only.
+
+    Counterpart of ``DAINSlowMotion.__call__`` in
+    ``vfidkr_tpu/models/dain.py:179-357`` (reference
+    ``networks/DAIN_slowmotion.py``), with its unrolled step loop:
+
+    1. MegaDepth on ``cat([i0, i2])``: log-depth, then
+       ``depth_inv = 1e-6 + exp(-log_depth)``;
+    2. the contexts ``cat([S2DF(i), log_depth])``, 196 channels;
+    3. MonoNet5 and two branch heads: the 4x4 kernels; PWC-Net flows in
+       both directions;
+    4. per step t: the flows scaled by ``20 t`` (forward) and ``20 (1 - t)``
+       (backward; Python floats) and upsampled x4; the depth-weighted
+       projection with the hole fill; the warp of the context pair (flow and
+       kernels detached) and of the frame pair; ``out = ref0 (1-t) +
+       ref2 t``; the 437-channel rectifier, added to ``out``.
+
+    Both directions are batched, so each step launches the projection's two
+    kernels, the context warp and the frame warp once each.  The depth
+    projection has no gradient yet (``vfidkr_torch.ops.flow_projection``),
+    so the forward runs under ``torch.no_grad`` or ``torch.inference_mode``,
+    and ``train()`` raises: training comes with its own slice.
+    """
+
+    def __init__(self, timestep: float = 0.5,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator
+        self.timestep = timestep
+        self.num_frames = int(round(1.0 / timestep)) - 1
+        self.initScaleNets_filter = MonoNet5(generator=g)
+        self.initScaleNets_filter1 = BranchHead(generator=g)
+        self.initScaleNets_filter2 = BranchHead(generator=g)
+        self.ctxNet = S2DF(generator=g)
+        self.depthNet = MegaDepthHourglass(generator=g)
+        # 3*3 + 2*2 + 2*16 + 2*196 = 437 input channels
+        self.rectifyNet = MultipleBasicBlock(437, 128, generator=g)
+        self.flownets = PWCDCNet(generator=g)
+        super().train(False)
+
+    def train(self, mode: bool = True) -> "DAINSlowMotion":
+        if mode:
+            raise NotImplementedError(
+                "DAINSlowMotion is evaluation only in vfidkr_torch: the depth "
+                "projection's backward and MegaDepth's batch statistics are "
+                "not ported yet")
+        return super().train(False)
+
+    def forward(self, i0: torch.Tensor, i2: torch.Tensor) -> dict:
+        """i0, i2: (B,3,H,W) frames, H and W multiples of 64.
+
+        Returns ``{"outputs": [outputs, rectified_outputs], "offsets":
+        [off0, off1], "filters": [filt0, filt1]}``: a list of one frame per
+        step each, and the last step's offsets."""
+        b = i0.shape[0]
+        frames = torch.cat([i0, i2], 0)
+        log_depth = self.depthNet(frames)
+        depth_inv = depth_inv_from_log_depth(log_depth)
+        ctx = torch.cat([self.ctxNet(frames), log_depth.detach()], 1)
+
+        trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
+        filt0 = self.initScaleNets_filter1(trunk)
+        filt1 = self.initScaleNets_filter2(trunk)
+        filt = torch.cat([filt0, filt1], 0)
+        raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
+
+        steps = [k * self.timestep for k in range(1, 1 + self.num_frames)]
+        outputs, rectified = [], []
+        for t, t_rev in zip(steps, steps[::-1]):
+            flows = upsample_bilinear(torch.cat(
+                [raw_fwd * (DIV_FLOW * t), raw_bwd * (DIV_FLOW * t_rev)], 0), 4)
+            offs = depth_flow_project(flows, depth_inv, hole_fill=True)
+            off0, off1 = offs[:b], offs[b:]
+            ctx_w = filter_interpolate(ctx, offs.detach(), filt.detach())
+            refs = filter_interpolate(frames, offs, filt)
+            ref0, ref2 = refs[:b], refs[b:]
+            out = ref0 * (1.0 - t) + ref2 * t
+            rectify_input = torch.cat(
+                [out, ref0, ref2, off0, off1, filt0, filt1, ctx_w[:b],
+                 ctx_w[b:]], 1)
+            outputs.append(out)
+            rectified.append(self.rectifyNet(rectify_input) + out)
+        return {"outputs": [outputs, rectified],
                 "offsets": [off0, off1],
                 "filters": [filt0, filt1]}

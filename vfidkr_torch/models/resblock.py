@@ -18,13 +18,14 @@ from vfidkr_torch.models.layers import conv
 
 
 class ResBasicBlock(nn.Module):
-    """conv3x3 -> ReLU -> conv3x3 -> + input -> ReLU, bias-free."""
+    """conv3x3 -> ReLU -> conv3x3 -> + input -> ReLU, bias-free; the first
+    conv dilated by ``dilation`` and padded by as much (S2DF's blocks)."""
 
-    def __init__(self, planes: int,
+    def __init__(self, planes: int, dilation: int = 1,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.conv1 = conv(planes, planes, 3, 1, 1, 1, bias=False, init="msra",
-                          generator=generator)
+        self.conv1 = conv(planes, planes, 3, 1, dilation, dilation,
+                          bias=False, init="msra", generator=generator)
         self.conv2 = conv(planes, planes, 3, 1, 1, 1, bias=False, init="msra",
                           generator=generator)
 

@@ -19,12 +19,17 @@ A landing on the frame's edge (``x2`` = 0 or W-1, ``y2`` = 0 or H-1) takes
 the full flow gradient, as the reference's quadrant difference gives it;
 the JAX package's ``jnp.clip`` halves it there.
 
-On CUDA tensors ``filter_interpolate`` launches the kernel
-``filter_interpolate_fwd`` (``vfidkr_torch/csrc/filter_interpolate.cu``)
-through an autograd Function whose backward is the kernel
-``filter_interpolate_bwd``
-(``vfidkr_torch/csrc/filter_interpolate_bwd.cu``).  On CPU tensors it runs
-``filter_interpolate_plain``, and autograd gives its gradient.
+On CUDA tensors ``filter_interpolate`` launches a forward kernel chosen by
+the channel count, as the JAX package dispatches (``:682-688``):
+``filter_interpolate_fwd`` (``vfidkr_torch/csrc/filter_interpolate.cu``,
+one thread per pixel) for C <= 8, and ``filter_interpolate_ctx``
+(``vfidkr_torch/csrc/filter_interpolate_ctx.cu``, one thread per pixel and
+group of channels) for wider tensors such as DAIN_slowmotion's 196-channel
+context.  Either is the forward of one autograd Function, whose backward is
+the kernel ``filter_interpolate_bwd``
+(``vfidkr_torch/csrc/filter_interpolate_bwd.cu``, generic in C).  On CPU
+tensors it runs ``filter_interpolate_plain`` for any C, and autograd gives
+its gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from vfidkr_torch import kernels
 
 FILTER_SIZE = 4
+MAX_NARROW_C = 8       # widest tensor that filter_interpolate_fwd takes
 
 
 def _check_shapes(image, flow, filt):
@@ -89,18 +95,25 @@ def filter_interpolate_plain(image: torch.Tensor, flow: torch.Tensor,
     return torch.where(valid.unsqueeze(1), out, image.detach())
 
 
+def forward_kernel(c: int) -> str:
+    """The forward kernel that ``filter_interpolate`` launches at C = c."""
+    return ("filter_interpolate_fwd" if c <= MAX_NARROW_C
+            else "filter_interpolate_ctx")
+
+
 class _FilterInterpolateKernel(torch.autograd.Function):
-    """Forward ``filter_interpolate_fwd``, backward ``filter_interpolate_bwd``;
+    """Forward ``filter_interpolate_fwd`` (C <= 8) or
+    ``filter_interpolate_ctx`` (C > 8), backward ``filter_interpolate_bwd``;
     the image scatter is skipped where the image needs no gradient."""
 
     @staticmethod
     def forward(ctx, image, flow, filt):
-        kernels.check_inputs("filter_interpolate_fwd", image, flow, filt)
-        ctx.save_for_backward(image, flow, filt)
         n, c, h, w = image.shape
+        name = forward_kernel(c)
+        kernels.check_inputs(name, image, flow, filt)
+        ctx.save_for_backward(image, flow, filt)
         out = torch.empty_like(image)
-        kernels.launch("filter_interpolate_fwd", image, flow, filt, out,
-                       n, c, h, w)
+        kernels.launch(name, image, flow, filt, out, n, c, h, w)
         return out
 
     @staticmethod

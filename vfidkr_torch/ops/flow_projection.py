@@ -1,30 +1,42 @@
-"""Flow projection, NCHW.
+"""Flow projection and depth-weighted flow projection, NCHW.
 
-Counterpart of ``flow_project`` in ``vfidkr_tpu/ops/flow_projection.py``
-(reference CUDA op ``flowprojection_cuda_kernel.cu``: forward :29-93, average
-:95-137, fill :141-234, backward :237-301).  Per source pixel ``(y, x)`` with
-flow ``(fx, fy)``: land at ``x2 = x + fx``, ``y2 = y + fy``; if
-``0 <= x2 <= W-1`` and ``0 <= y2 <= H-1``, add ``(-fx, -fy, 1)`` to the four
-neighbours ``(floor(y2) | min(floor(y2)+1, H-1), floor(x2) | min(floor(x2)+1,
-W-1))``.  At the right and bottom border the same cell gets two adds, as in
-the reference.  Each cell with a count then takes the mean.  In training the
-holes stay 0 and the gradient flows back through the scatter; at inference a
-hole takes the mean of the nearest filled cells to its left, right, top and
-bottom, and no gradient reaches the flow (JAX's ``stop_gradient``).
+Counterpart of ``flow_project`` and ``depth_flow_project`` in
+``vfidkr_tpu/ops/flow_projection.py`` (reference CUDA ops
+``flowprojection_cuda_kernel.cu``: forward :29-93, average :95-137, fill
+:141-234, backward :237-301; and ``depthflowprojection_cuda_kernel.cu``).
+Per source pixel ``(y, x)`` with flow ``(fx, fy)`` and weight ``d`` (1, or
+the inverse depth): land at ``x2 = x + fx``, ``y2 = y + fy``; if
+``0 <= x2 <= W-1`` and ``0 <= y2 <= H-1``, add ``(-fx·d, -fy·d, d)`` to the
+four neighbours ``(floor(y2) | min(floor(y2)+1, H-1), floor(x2) |
+min(floor(x2)+1, W-1))``.  At the right and bottom border the same cell gets
+two adds, as in the reference.  Each cell with a weight sum ``> 0`` then
+takes the weighted mean.  In training the holes stay 0 and the gradient
+flows back through the scatter; at inference a hole takes the mean of the
+nearest filled cells to its left, right, top and bottom, and no gradient
+reaches the flow (JAX's ``stop_gradient``).
 
 Three CUDA kernels carry it on the card:
 
-* ``scatter4``: the scatter into (N,3,H,W) sums, channel 2 the count
-  (``flow_project_scatter``, ``vfidkr_torch/csrc/flow_project_scatter.cu``)
-  through an autograd Function whose backward is ``flow_project_scatter_bwd``
+* ``scatter4``: the scatter into (N,3,H,W) sums, channel 2 the count or
+  the weight sum (``flow_project_scatter``,
+  ``vfidkr_torch/csrc/flow_project_scatter.cu``); unweighted, through an
+  autograd Function whose backward is ``flow_project_scatter_bwd``
   (``vfidkr_torch/csrc/flow_project_scatter_bwd.cu``);
 * ``finalize``: the count average and hole fill, inference only
   (``flow_project_finalize``, ``vfidkr_torch/csrc/flow_project_finalize.cu``).
 
 Each launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors.  The kernel's atomic adds make the summed flow depend on their order
-to the last bits; the count is exact in any order.  The training count
-average is plain PyTorch on both devices, as it is XLA in the JAX package.
+to the last bits; a count is exact in any order, a weight sum is not.  The
+training count average is plain PyTorch on both devices, as it is XLA in the
+JAX package.
+
+The depth-weighted projection has no gradient in the port yet: the
+reference's backward is not the autodiff of its forward (it uses
+``(f - out)`` where autodiff gives ``(f + out)``,
+``vfidkr_tpu/ops/flow_projection.py:545-581``), so the plain version's
+autograd would be wrong.  ``depth_flow_project`` raises where its inputs
+need a gradient, on either device.
 """
 
 from __future__ import annotations
@@ -44,9 +56,18 @@ def _check_acc(acc):
         raise ValueError(f"acc must be (N,3,H,W), got {tuple(acc.shape)}")
 
 
-def scatter4_plain(flow: torch.Tensor) -> torch.Tensor:
+def _check_weight(weight, flow):
+    n, _, h, w = flow.shape
+    if weight is not None and tuple(weight.shape) != (n, h, w):
+        raise ValueError(f"weight must be {(n, h, w)}, got "
+                         f"{tuple(weight.shape)}")
+
+
+def scatter4_plain(flow: torch.Tensor,
+                   weight: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the scatter: four ``index_add_`` passes."""
     _check_flow(flow)
+    _check_weight(weight, flow)
     n, _, h, w = flow.shape
     dev = flow.device
     fx, fy = flow[:, 0], flow[:, 1]
@@ -58,9 +79,13 @@ def scatter4_plain(flow: torch.Tensor) -> torch.Tensor:
     ix_r = (ix_l + 1).clamp(max=w - 1)
     iy_b = (iy_t + 1).clamp(max=h - 1)
 
-    vals = torch.stack([torch.where(valid, -fx, 0.0),
-                        torch.where(valid, -fy, 0.0),
-                        valid.float()]).reshape(3, n * h * w)
+    if weight is None:
+        vals = torch.stack([torch.where(valid, -fx, 0.0),
+                            torch.where(valid, -fy, 0.0), valid.float()])
+    else:
+        d = weight * valid.float()
+        vals = torch.stack([-fx * d, -fy * d, d])
+    vals = vals.reshape(3, n * h * w)
     base = (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1)
     acc = torch.zeros(3, n * h * w, dtype=torch.float32, device=dev)
     for iy, ix in ((iy_t, ix_l), (iy_t, ix_r), (iy_b, ix_l), (iy_b, ix_r)):
@@ -68,19 +93,24 @@ def scatter4_plain(flow: torch.Tensor) -> torch.Tensor:
     return acc.reshape(3, n, h, w).permute(1, 0, 2, 3).contiguous()
 
 
+def _launch_scatter4(flow, weight):
+    kernels.check_inputs("flow_project_scatter", flow,
+                         *(() if weight is None else (weight,)))
+    n, _, h, w = flow.shape
+    acc = torch.zeros((n, 3, h, w), dtype=torch.float32, device=flow.device)
+    kernels.launch("flow_project_scatter", flow, weight, acc, n, h, w)
+    return acc
+
+
 class _Scatter4Kernel(torch.autograd.Function):
-    """Forward ``flow_project_scatter``, backward ``flow_project_scatter_bwd``
-    (the count channel carries no gradient to the flow)."""
+    """Forward ``flow_project_scatter`` unweighted, backward
+    ``flow_project_scatter_bwd`` (the count channel carries no gradient to
+    the flow)."""
 
     @staticmethod
     def forward(ctx, flow):
-        kernels.check_inputs("flow_project_scatter", flow)
         ctx.save_for_backward(flow)
-        n, _, h, w = flow.shape
-        acc = torch.zeros((n, 3, h, w), dtype=torch.float32,
-                          device=flow.device)
-        kernels.launch("flow_project_scatter", flow, acc, n, h, w)
-        return acc
+        return _launch_scatter4(flow, None)
 
     @staticmethod
     def backward(ctx, g):
@@ -93,12 +123,24 @@ class _Scatter4Kernel(torch.autograd.Function):
         return gflow
 
 
-def scatter4(flow: torch.Tensor) -> torch.Tensor:
-    """(N,2,H,W) flow -> (N,3,H,W): summed (-fx, -fy) and the hit count."""
+def scatter4(flow: torch.Tensor,
+             weight: torch.Tensor | None = None) -> torch.Tensor:
+    """(N,2,H,W) flow -> (N,3,H,W): summed (-fx, -fy) and the hit count;
+    with a (N,H,W) ``weight`` ``d``, summed (-fx·d, -fy·d) and the sum of
+    ``d``.  The weighted scatter has no backward: it raises where its
+    inputs need a gradient."""
     _check_flow(flow)
+    _check_weight(weight, flow)
+    if weight is not None and torch.is_grad_enabled() and (
+            flow.requires_grad or weight.requires_grad):
+        raise RuntimeError("the depth-weighted flow projection has no "
+                           "backward in vfidkr_torch yet (detach its inputs "
+                           "or run under torch.no_grad)")
     if flow.device.type == "cpu":
-        return scatter4_plain(flow)
-    return _Scatter4Kernel.apply(flow)
+        return scatter4_plain(flow, weight)
+    if weight is None:
+        return _Scatter4Kernel.apply(flow)
+    return _launch_scatter4(flow, weight)
 
 
 def _nearest_filled(out, filled, dim):
@@ -135,13 +177,15 @@ def fill_holes(count: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _count_average(acc):
-    """(N,3,H,W) scatter sums -> (N,2,H,W) mean flow, 0 where no hit."""
+    """(N,3,H,W) scatter sums -> (N,2,H,W) mean flow, 0 where no hit.  The
+    clamp keeps the unselected quotients (and their gradients) finite; a
+    count is 0 or at least 1, a weight sum 0 or at least 1e-6."""
     cnt = acc[:, 2:]
-    return torch.where(cnt > 0, acc[:, :2] / cnt.clamp(min=1), 0.0)
+    return torch.where(cnt > 0, acc[:, :2] / cnt.clamp(min=1e-30), 0.0)
 
 
 def finalize_plain(acc: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the count average and hole fill."""
+    """Plain PyTorch version of the (weighted) average and hole fill."""
     _check_acc(acc)
     return fill_holes(acc[:, 2], _count_average(acc))
 
@@ -176,3 +220,21 @@ def flow_project(flow: torch.Tensor, hole_fill: bool = False) -> torch.Tensor:
     if hole_fill:
         return finalize(scatter4(flow.detach()))
     return _count_average(scatter4(flow))
+
+
+def depth_flow_project(flow: torch.Tensor, depth_inv: torch.Tensor,
+                       hole_fill: bool = False) -> torch.Tensor:
+    """Depth-weighted flow projection, forward only, as
+    ``depth_flow_project(flow, depth_inv, hole_fill)`` of the JAX package:
+    closer pixels (larger inverse depth) dominate each cell's average.
+
+    flow (N,2,H,W), depth_inv (N,H,W) or (N,1,H,W), positive.  On CUDA
+    tensors it launches ``flow_project_scatter`` with the weight and, with
+    ``hole_fill``, ``flow_project_finalize``.  Raises where ``flow`` or
+    ``depth_inv`` needs a gradient (see the module docstring)."""
+    _check_flow(flow)
+    n, _, h, w = flow.shape
+    if depth_inv.dim() == 4:
+        depth_inv = depth_inv.reshape(n, h, w)
+    acc = scatter4(flow, depth_inv.contiguous())
+    return finalize(acc) if hole_fill else _count_average(acc)
