@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths, the DAIN eval forward, the DAIN
-train step and the DAIN_slowmotion 4x eval forward, on one NVIDIA GPU
-through its hand-written CUDA kernels, and check them.
+"""Drive the PyTorch port's paths, the DAIN eval forward, the DAIN train
+step and the DAIN_slowmotion 4x eval forward in float32, the same two eval
+forwards in the bf16 fast-eval lane, and the Middlebury eval app's core in
+that lane, on one NVIDIA GPU through its seven hand-written CUDA
+kernels, and check them.
 
 Run from the root of the repository, with no arguments:
 
@@ -9,8 +11,8 @@ Run from the root of the repository, with no arguments:
 
 Phases, each printing its own lines; any failure raises, so the script exits
 non-zero and prints no result line.  The paths are checked and timed first
-(3-5), the kernel cases next (6), and every torch.profiler session comes
-last (7), since host-bound timings read slower after one:
+(3-5, then 5b-5d), the kernel cases next (6), and every torch.profiler
+session comes last (7), since host-bound timings read slower after one:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
    limit as nvidia-smi gives them; turns TF32 off for convolutions and
@@ -32,20 +34,34 @@ last (7), since host-bound timings read slower after one:
    every Adamax group moved; one eval step (hole fill, no backward kernel);
    one train step's gradients held to the same step on the CPU, per leaf;
    the train step's time (median of 20 after 5 warm-up) and peak memory;
+5b. eval_bf16: DAIN(compute_dtype="bfloat16") on the weights and frames of
+   phase 3: one forward launches K1-K3 once and K4 (fused_resblocks) six
+   times, one launch per conv of the rectifier's trunk; its frames and
+   filters held to the float32 lane's (LANE_* below); its ms/frame as
+   phase 3's;
+5c. slowmo_bf16: DAINSlowMotion(0.25, "bfloat16") likewise: K1, K7, K2, K3
+   3 times and K4 18 times (three rectifier calls) a forward; held to the
+   float32 slow-motion forward; ms a forward and a frame, peak memory;
+5d. middlebury: the Middlebury eval app's in-memory core
+   (vfidkr_torch.apps.demo_middlebury.evaluate) in the bf16 lane on three
+   synthetic 640x480 pairs on the 8-bit grid, padded to 704x512: K4 at
+   (1,128,512,704); its IE, PSNR and SSIM, and its device time a pair;
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
-   projection also depth-weighted), with the tolerance stated; the backward
-   kernels against the autograd of the plain forwards; each case's time per
-   call with the wrapper and its plain version's (CUDA events) and its
-   bound: the larger of its bytes (each input read once, each output
-   written once) at 3.35 TB/s and its operations at 67 TFLOP/s float32;
-7. profile: where the slow-motion forward's and the train step's time goes
-   (each stage alone, the Adamax step, torch.profiler over whole runs: busy
-   share, the largest device kernels), and each kernel case's device time
-   per launch;
-8. one JSON line of the kernels, with each kernel's launches in one eval
-   forward, one train step and one slow-motion forward, then the result
-   line.
+   projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
+   and (3,128,320,448)), with the tolerance stated; the backward kernels
+   against the autograd of the plain forwards; each case's time per call
+   with the wrapper and its plain version's (CUDA events), K4's also beside
+   its yardstick, the same six convs as bf16 cuDNN calls; and its bound: the
+   larger of its bytes (each input read once, each output written once) at
+   3.35 TB/s and its operations at 67 TFLOP/s float32 (989 TFLOP/s bf16
+   for K4);
+7. profile: where the slow-motion forward's, the train step's and the bf16
+   lane's time goes (each stage alone, the Adamax step, torch.profiler over
+   whole runs: busy share, the largest device kernels), and each kernel
+   case's device time per call;
+8. one JSON line of the kernels, with each kernel's launches in one run of
+   each path, then the result line.
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from vfidkr_torch import kernels
+from vfidkr_torch.apps import demo_middlebury
 from vfidkr_torch.kernels import build
 from vfidkr_torch.models import DAIN, DAINSlowMotion
 from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP
@@ -68,6 +85,7 @@ from vfidkr_torch.models.layers import upsample_bilinear
 from vfidkr_torch.models.megadepth import depth_inv_from_log_depth
 from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_projection as FP
+from vfidkr_torch.ops import rectify as RB
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
                                    train_step)
 from vfidkr_torch.training.train_state import GROUPS
@@ -82,6 +100,16 @@ SLOWMO_T = 0.25                 # 4x slow motion: 3 frames a pair
 HBM_BYTES_S = 3.35e12           # H100 SXM HBM3
 F32_FLOP_S = 67e12              # H100 SXM float32, CUDA cores
 BF16_FLOP_S = 989e12            # H100 SXM bf16, tensor cores, dense
+# K4's shapes: the DAIN eval trunk, the padded Middlebury 640x480 frame, and
+# a batch of three at the padded Vimeo-90K width
+K4_SHAPES = ((1, 128, H, W), (1, 128, 512, 704), (3, 128, 320, 448))
+K4_TOL = 2.0 ** -6              # two bf16 ulps, see _compare_k4
+# The bf16 lane against the float32 lane on the rectified frame.  JAX's own
+# lane is max 0.035, mean 0.0076, 40.3 dB off its float32 forward at 64x64
+# on these tamed weights (tests/torch_lane.py); allowed here: 2.5x its
+# mean, 7x its max (28x the pixels at 448x256) and 8 dB under its PSNR.
+LANE_MEAN, LANE_MAX, LANE_PSNR = 0.02, 0.25, 32.0
+MB_H, MB_W, MB_PAIRS = 480, 640, 3     # the Middlebury phase's frames
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -102,6 +130,9 @@ KERNELS = {
     "filter_interpolate_ctx": (
         "vfidkr_torch/csrc/filter_interpolate_ctx.cu",
         "vfidkr_tpu/ops/pallas/ctx_gather_kernel.py:160"),
+    "fused_resblocks": (
+        "vfidkr_torch/csrc/fused_resblocks.cu",
+        "vfidkr_tpu/ops/pallas/rectify_kernel.py:135"),
 }
 # launches of each kernel in one run of each path; the others launch none
 PATHS = {
@@ -114,6 +145,19 @@ PATHS = {
                        "filter_interpolate_ctx": 3,
                        "flow_project_scatter": 3,
                        "flow_project_finalize": 3},
+    # the bf16 lane: K4 launches once per conv of the trunk, six a call
+    "eval_forward_bf16": {"filter_interpolate_fwd": 1,
+                          "flow_project_scatter": 1,
+                          "flow_project_finalize": 1, "fused_resblocks": 6},
+    "slowmo_forward_bf16": {"filter_interpolate_fwd": 3,
+                            "filter_interpolate_ctx": 3,
+                            "flow_project_scatter": 3,
+                            "flow_project_finalize": 3,
+                            "fused_resblocks": 18},
+    "middlebury_bf16": {"filter_interpolate_fwd": MB_PAIRS,
+                        "flow_project_scatter": MB_PAIRS,
+                        "flow_project_finalize": MB_PAIRS,
+                        "fused_resblocks": 6 * MB_PAIRS},
 }
 # the case of each kernel that its row of the kernels line reports
 ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
@@ -121,7 +165,8 @@ ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "flow_project_finalize": "K3",
             "filter_interpolate_bwd": "K5 C=3 no image grad",
             "flow_project_scatter_bwd": "K6",
-            "filter_interpolate_ctx": "K7 C=196"}
+            "filter_interpolate_ctx": "K7 C=196",
+            "fused_resblocks": f"K4 {(1, 128, H, W)}"}
 
 
 def phase_device() -> torch.device:
@@ -236,9 +281,11 @@ def phase_kernels(dev: torch.device) -> dict:
     proj_px = _landings(flow, False)
     cases = {}
 
-    def case(key, kernel, fn, plain, err, nbytes, ops):
+    def case(key, kernel, fn, plain, err, nbytes, ops, peak=F32_FLOP_S,
+             library=None, per_call=1):
         cases[key] = {"kernel": kernel, "fn": fn, "plain": plain, "err": err,
-                      "bytes": nbytes, "ops": ops}
+                      "bytes": nbytes, "ops": ops, "peak": peak,
+                      "library": library, "per_call": per_call}
 
     # the warp: K1 on the frames; K7, and K1 for comparison, on the context
     for key, kernel, img in (("K1 C=3", "filter_interpolate_fwd", image),
@@ -334,8 +381,83 @@ def phase_kernels(dev: torch.device) -> dict:
          _grad_call(FP.scatter4, [f], acc_cot),
          _grad_call(FP.scatter4_plain, [f], acc_cot), err,
          _nbytes(flow, acc_cot[:, :2], flow), proj_px * 8)
+
+    # the bf16 lane's rectifier trunk: six launches a call; its yardstick is
+    # the same six convs as bf16 cuDNN calls
+    for shape in K4_SHAPES:
+        x, w6 = (t.to(dev) for t in _trunk_inputs(g, shape))
+        err = _compare_k4(shape, x, w6)
+        n, c, h, w = shape
+        case(f"K4 {shape}", "fused_resblocks",
+             lambda x=x, w6=w6: RB.fused_resblocks(x, w6),
+             lambda x=x, w6=w6: RB.fused_resblocks_plain(x, w6), err,
+             2 * _nbytes(x) + _nbytes(w6), RB.N_CONVS * 2 * c * c * 9 * n * h * w,
+             peak=BF16_FLOP_S, per_call=RB.N_CONVS,
+             library=lambda x=x, w6=w6: cudnn_chain(x, w6))
     torch.cuda.synchronize()
     return cases
+
+
+def _trunk_inputs(g: torch.Generator, shape):
+    """A bf16 activation as the rectifier's block 1 leaves it (a ReLU of a
+    unit normal) and six trunk conv weights at its init, normal(0,
+    sqrt(2 / (9 * 128)))."""
+    x = torch.relu(torch.randn(*shape, generator=g)).bfloat16()
+    w6 = (torch.randn(RB.N_CONVS, RB.C, RB.C, 3, 3, generator=g)
+          * (2.0 / (9 * RB.C)) ** 0.5).bfloat16()
+    return x, w6
+
+
+def cudnn_chain(x, w6):
+    """K4's yardstick: the six convs as bf16 ``F.conv2d`` calls on cuDNN,
+    the ReLU, residual add and cast in ATen (the residual added in bf16, the
+    chained lane's rounding).  Timed only; the port never calls it."""
+    h = x
+    for k in range(RB.N_CONVS // 2):
+        t = F.relu(F.conv2d(h, w6[2 * k], padding=1))
+        h = F.relu(F.conv2d(t, w6[2 * k + 1], padding=1) + h)
+    return h
+
+
+def _compare_k4(shape, x, w6) -> float:
+    """K4 against its plain version, per launch and per call.
+
+    Per launch, each of the six convs from the same bf16 inputs as its
+    plain conv: |kernel - plain| <= K4_TOL * max(1, |plain|) elementwise
+    (the sums run in another order, so a bf16 rounding flips by one ulp now
+    and then).  Per call: the chain carries those flips on through the
+    other convs, so an element's difference follows the activations' scale,
+    not its own value: |kernel - plain| <= K4_TOL * max(1, max |plain|).
+    Returns the call's max |kernel - plain|."""
+    n, _, h, w = shape
+    taps = w6.permute(0, 3, 4, 2, 1).contiguous()
+    worst, h_in = 0.0, x
+    for k in range(RB.N_CONVS):
+        res = None if k % 2 == 0 else block_in
+        if k % 2 == 0:
+            block_in = h_in
+        out = torch.empty_like(x)
+        kernels.launch("fused_resblocks", h_in, taps[k], res, out, n, h, w)
+        pre = F.conv2d(h_in.float(), w6[k].float(), padding=1)
+        want = F.relu(pre if res is None else pre + res.float()).bfloat16()
+        worst = max(worst, ((out.float() - want.float()).abs()
+                            / want.float().abs().clamp(min=1)).max().item())
+        h_in = out
+    got = RB.fused_resblocks(x, w6).float()
+    want = RB.fused_resblocks_plain(x, w6).float()
+    diff = (got - want).abs()
+    err, scale = diff.max().item(), max(1.0, want.abs().max().item())
+    print(f"[kernels] fused_resblocks at {shape}: per launch max |kernel - "
+          f"plain| / max(1, |plain|) = {worst:.3e}; per call max |kernel - "
+          f"plain| = {err:.3e} (max |plain| {scale:.3f}), scaled "
+          f"{err / scale:.3e}, {(diff > 0).float().mean().item():.3%} of the "
+          f"elements differ (tolerance {K4_TOL:.3e} for both)")
+    if not (worst <= K4_TOL and err <= K4_TOL * scale):
+        raise AssertionError(f"fused_resblocks at {shape}: {worst}, {err}")
+    if not torch.equal(h_in.float(), got):
+        raise AssertionError("fused_resblocks: the wrapper's call differs "
+                             "from its six launches")
+    return err
 
 
 def _grads(fn, inputs, cot):
@@ -611,8 +733,9 @@ def _profile_whole(unit, fn, reps, kernel_names):
           f"window a {unit}: idle {1 - busy / span:.1%}")
     for name in kernel_names:
         ts = [e - s0 for s0, e, n in events if f"{name}_kernel" in n]
-        print(f"[profile] {name} in the {unit}: {len(ts) // reps} launches "
-              f"a {unit}, {statistics.median(ts):.2f} us median device time")
+        med = f"{statistics.median(ts):.2f} us" if ts else "none recorded"
+        print(f"[profile] {name} in the {unit}: {len(ts) / reps:g} launches "
+              f"a {unit} recorded, median device time {med}")
     names = {n for _, _, n in events}
     top = sorted((e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.key in names),
@@ -874,30 +997,27 @@ def phase_call_times(cases) -> dict:
     version's (CUDA events), and the bound."""
     times = {}
     for key, c in cases.items():
-        inner = 10 if c["bytes"] < 1e8 else 1
+        # ten calls a sample where one is short (small tensors, few FLOPs)
+        inner = 10 if c["bytes"] < 1e8 and c["ops"] < 1e10 else 1
         call = statistics.median(cuda_times_ms(c["fn"], inner=inner))
         plain = statistics.median(cuda_times_ms(c["plain"], inner=inner))
+        library = (statistics.median(cuda_times_ms(c["library"], inner=inner))
+                   if c["library"] else None)
         t_bytes = c["bytes"] / HBM_BYTES_S * 1e3
-        t_ops = c["ops"] / F32_FLOP_S * 1e3
+        t_ops = c["ops"] / c["peak"] * 1e3
         times[key] = {"call_ms": call, "plain_ms": plain,
+                      "library_ms": library,
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        lib = ("" if library is None else
+               f", the bf16 cuDNN chain {library * 1000:.1f} us")
         print(f"[times] {key} ({c['kernel']}): per call {call * 1000:.1f} us "
-              f"with the wrapper, plain {plain * 1000:.1f} us (CUDA events, "
-              f"median of 50 x {inner}); bound "
+              f"with the wrapper, plain {plain * 1000:.1f} us{lib} (CUDA "
+              f"events, median of 50 x {inner}); bound "
               f"{times[key]['bound_ms'] * 1000:.2f} us by "
               f"{times[key]['bound_by']} ({c['bytes'] / 1e6:.2f} MB, "
-              f"{c['ops'] / 1e9:.3f} GFLOP)")
-    # K4 (fused_resblocks, the bf16 lane's rectifier trunk) is not ported
-    # yet: its bound at the DAIN eval shapes, 6 3x3 128->128 convs on
-    # (1,128,256,448), bf16 in and out
-    ops = 6 * 2 * 128 * 128 * 9 * H * W
-    nbytes = 2 * (2 * 128 * H * W + 6 * 128 * 128 * 9)
-    print(f"[times] K4 fused_resblocks (still to port) at (1, 128, {H}, {W}): "
-          f"bound {max(ops / BF16_FLOP_S, nbytes / HBM_BYTES_S) * 1e6:.2f} "
-          f"us by operations ({ops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; "
-          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s: "
-          f"{nbytes / HBM_BYTES_S * 1e6:.2f} us)")
+              f"{c['ops'] / 1e9:.3f} GFLOP at {c['peak'] / 1e12:.0f} "
+              f"TFLOP/s)")
     return times
 
 
@@ -908,21 +1028,255 @@ def phase_device_times(cases, times) -> None:
 
     for key, c in cases.items():
         # the profiler may drop a session's first events: 20 calls, and the
-        # median of what it records, at least 10 launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                c["fn"]()
-            torch.cuda.synchronize()
-        dev_us = [e - s0 for s0, e, n in _device_events(prof)
-                  if f"{c['kernel']}_kernel" in n]
-        if not 10 <= len(dev_us) <= 20:
+        # median of what it records, at least 10 launches (a second session
+        # where the first recorded fewer)
+        per_call = c["per_call"]
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    c["fn"]()
+                torch.cuda.synchronize()
+            dev_us = [e - s0 for s0, e, n in _device_events(prof)
+                      if f"{c['kernel']}_kernel" in n]
+            if len(dev_us) >= 10:
+                break
+        if not 10 <= len(dev_us) <= 20 * per_call:
             raise AssertionError(f"{key}: {len(dev_us)} launches of "
                                  f"{c['kernel']} recorded in 20 calls")
-        ms = times[key]["ms"] = statistics.median(dev_us) / 1000
+        launch_ms = statistics.median(dev_us) / 1000
+        ms = times[key]["ms"] = launch_ms * per_call
         bound = times[key]["bound_ms"]
+        each = ("" if per_call == 1 else
+                f" ({per_call} launches of {launch_ms * 1000:.2f} us)")
+        if per_call > 1:
+            times[key]["ms_per_launch"] = launch_ms
         print(f"[times] {key} ({c['kernel']}): device {ms * 1000:.2f} us a "
-              f"launch (median of {len(dev_us)}), bound {bound * 1000:.2f} "
-              f"us: {bound / ms:.1%} of it")
+              f"call{each} (median of {len(dev_us)} launches), bound "
+              f"{bound * 1000:.2f} us: {bound / ms:.1%} of it")
+
+
+def _bf16_twin(model: torch.nn.Module) -> torch.nn.Module:
+    """The bf16 lane of ``model`` (DAIN or DAINSlowMotion) on its weights."""
+    if isinstance(model, DAINSlowMotion):
+        twin = DAINSlowMotion(model.timestep, compute_dtype="bfloat16")
+    else:
+        twin = DAIN(compute_dtype="bfloat16")
+    twin.load_state_dict(model.state_dict())
+    return twin.to(next(model.parameters()).device)
+
+
+def _hold_to_f32_lane(tag, frames, others) -> None:
+    """The bf16 lane's frames against the float32 lane's: mean and max
+    |diff| and the PSNR (peak 1) within LANE_*; ``others`` (name, bf16,
+    f32, bound) each by max |diff|."""
+    failed = []
+    for name, got, want in frames:
+        d = (got - want).abs()
+        mean, worst = d.mean().item(), d.max().item()
+        psnr = 10 * math.log10(1.0 / (d * d).mean().item())
+        print(f"[{tag}] bf16 vs float32 lane, {name}: max |diff| "
+              f"{worst:.4e}, mean {mean:.4e}, PSNR {psnr:.2f} dB (bounds "
+              f"{LANE_MAX}, {LANE_MEAN}, {LANE_PSNR} dB)")
+        if not (worst <= LANE_MAX and mean <= LANE_MEAN and psnr >= LANE_PSNR):
+            failed.append(name)
+    for name, got, want, bound in others:
+        worst = (got - want).abs().max().item()
+        print(f"[{tag}] bf16 vs float32 lane, {name}: max |diff| "
+              f"{worst:.4e} (bound {bound:.0e})")
+        if not worst <= bound:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"the bf16 lane is off the float32 lane: "
+                             f"{failed}")
+
+
+def phase_eval_bf16(dev: torch.device):
+    """DAIN's bf16 lane at 448x256 on phase_slice's weights and frames:
+    launches, the frames against the float32 lane, ms/frame."""
+    f32 = make_model().eval().to(dev)
+    model = _bf16_twin(f32)
+    i0, i2 = (x.to(dev) for x in make_frames(torch.Generator().manual_seed(1)))
+    with torch.inference_mode():
+        want = f32(i0, i2)
+        kernels.reset_launches()
+        out = model(i0, i2)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    print(f"[eval_bf16] launches in one bf16 DAIN eval forward: {launches}")
+    _check_launches("eval_forward_bf16", launches)
+    _check_finite(out)
+    # the offsets are float32 computations in both lanes (the projection's
+    # atomics sum in any order); the filters come out of bf16 convs
+    _hold_to_f32_lane("eval_bf16", [
+        ("rectified", out["outputs"][1], want["outputs"][1]),
+        ("cur_output", out["outputs"][0], want["outputs"][0])], [
+        ("offsets", torch.cat(out["offsets"]), torch.cat(want["offsets"]),
+         1e-4),
+        ("filters", torch.cat(out["filters"]), torch.cat(want["filters"]),
+         LANE_MAX)])
+    with torch.inference_mode():
+        t = cuda_times_ms(lambda: model(i0, i2))
+    ms = statistics.median(t)
+    print(f"[times] DAIN eval 448x256 B=1 bf16 lane: {ms:.3f} ms/frame, "
+          f"{1000.0 / ms:.2f} frames/s (median of {len(t)} after 10 warm-up; "
+          f"p80 {_p80(t):.3f} ms, min {t[0]:.3f}, max {t[-1]:.3f})")
+    return model, i0, i2, launches
+
+
+def phase_slowmo_bf16(dev: torch.device):
+    """DAINSlowMotion(0.25)'s bf16 lane at 448x256: launches, each step's
+    frames against the float32 lane, ms a forward and a frame, peak
+    memory."""
+    f32 = make_slowmo_model().to(dev)
+    model = _bf16_twin(f32)
+    i0, i2 = (x.to(dev) for x in make_frames(torch.Generator().manual_seed(1)))
+    with torch.inference_mode():
+        want = f32(i0, i2)
+        kernels.reset_launches()
+        out = model(i0, i2)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    del f32
+    print(f"[slowmo_bf16] launches in one bf16 DAINSlowMotion({SLOWMO_T}) "
+          f"forward: {launches}")
+    _check_launches("slowmo_forward_bf16", launches)
+    _check_finite(out)
+    frames = []
+    for s in range(model.num_frames):
+        frames.append((f"step {s} rectified", out["outputs"][1][s],
+                       want["outputs"][1][s]))
+        frames.append((f"step {s} output", out["outputs"][0][s],
+                       want["outputs"][0][s]))
+    _hold_to_f32_lane("slowmo_bf16", frames, [
+        ("last step's offsets", torch.cat(out["offsets"]),
+         torch.cat(want["offsets"]), 1e-4)])
+    del want, out
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        t = cuda_times_ms(lambda: model(i0, i2))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(t)
+    k = model.num_frames
+    print(f"[times] DAINSlowMotion({SLOWMO_T}) 448x256 B=1 bf16 lane: "
+          f"{ms:.3f} ms/forward, {ms / k:.3f} ms per synthesised frame ({k} a "
+          f"forward; median of {len(t)} after 10 warm-up; p80 {_p80(t):.3f} "
+          f"ms, min {t[0]:.3f}, max {t[-1]:.3f} ms/forward); peak memory "
+          f"{peak:.3f} GiB, of which {held:.3f} GiB held before the forwards "
+          f"(the paths' models and the train step's state)")
+    return model, i0, i2, launches
+
+
+def make_pairs(g: torch.Generator, n: int, h: int, w: int):
+    """``n`` synthetic Middlebury triplets, (H,W,3) float32 on the 8-bit
+    grid: a smooth random scene, the frames its crops moved by -(4, 2) and
+    +(4, 2) px, the ground truth the centre crop."""
+    pairs = []
+    for i in range(n):
+        scene = F.interpolate(torch.rand(1, 3, h // 16 + 1, w // 16 + 1,
+                                         generator=g),
+                              size=(h + 8, w + 8), mode="bicubic",
+                              align_corners=False).clamp(0, 1)[0]
+        crop = lambda dx, dy: torch.round(
+            scene[:, 4 + dy:4 + dy + h, 4 + dx:4 + dx + w] * 255) / 255
+        pairs.append((f"pair{i}", *(crop(dx, dy).permute(1, 2, 0).numpy()
+                                    for dx, dy in ((-4, -2), (4, 2), (0, 0)))))
+    return pairs
+
+
+def make_middlebury_model() -> torch.nn.Module:
+    """DAIN for the Middlebury phase: make_model's weights, but with kernels
+    that blur the 4x4 window to a unit sum (the heads' last conv zero, its
+    bias 1/4: the bilinear quadrant weights sum to 4 over the window) and a
+    rectifier that adds a small correction (its last conv x0.01), so
+    the synthesised frames, and the metrics on them, are frames."""
+    model = make_model()
+    with torch.no_grad():
+        for head in (model.initScaleNets_filter1, model.initScaleNets_filter2):
+            head[2].weight.zero_()
+            head[2].bias.fill_(0.25)
+        for p in model.rectifyNet.block5.parameters():
+            p.mul_(0.01)
+    return model
+
+
+def phase_middlebury(dev: torch.device):
+    """The Middlebury app's core in the bf16 lane at 640x480 (padded to
+    704x512), on make_middlebury_model's weights: launches, frames, metrics,
+    and its device time a pair; the float32 lane's metrics beside it."""
+    f32 = make_middlebury_model().eval().to(dev)
+    model = _bf16_twin(f32)
+    pairs = make_pairs(torch.Generator().manual_seed(4), MB_PAIRS, MB_H, MB_W)
+    kernels.reset_launches()
+    results, summary = demo_middlebury.evaluate(model, pairs, dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"[middlebury] launches over {MB_PAIRS} pairs at {MB_W}x{MB_H}: "
+          f"{launches}")
+    _check_launches("middlebury_bf16", launches)
+    for r in results:
+        if r["frame"].shape != (MB_H, MB_W, 3) or not all(
+                math.isfinite(r[k]) for k in ("ie", "psnr", "ssim")) \
+                or not -1.0 <= r["ssim"] <= 1.0:
+            raise AssertionError(f"middlebury: bad result for {r['name']}")
+    _, f32_summary = demo_middlebury.evaluate(f32, pairs, dev)
+    _, timed = demo_middlebury.evaluate(model, pairs[:1], dev,
+                                        measure_time=True)
+    print(f"[middlebury] bf16 lane: IE {summary['avg_ie']:.4f}, PSNR "
+          f"{summary['avg_psnr']:.4f}, SSIM {summary['avg_ssim']:.5f}; "
+          f"float32 lane: IE {f32_summary['avg_ie']:.4f}, PSNR "
+          f"{f32_summary['avg_psnr']:.4f}, SSIM "
+          f"{f32_summary['avg_ssim']:.5f} ({summary['sequences']} pairs)")
+    print(f"[times] Middlebury core 640x480 (padded 704x512) B=1 bf16 lane: "
+          f"{timed['device_time_per_pair_s'] * 1000:.3f} ms a pair (CUDA "
+          f"events, median of 5 forwards after 1)")
+    return launches
+
+
+def phase_bf16_stages(dev: torch.device, eval_model, slowmo_model, i0, i2):
+    """Where the bf16 lane's time goes, each stage on its own inputs (CUDA
+    events, median of 15 after 3 warm-up): MonoNet5 and the heads, S2DF,
+    and each part of the rectifier (the 7x7 conv, the K4 trunk, the 3x3
+    conv to 3 channels)."""
+    with torch.inference_mode():
+        for tag, model, cin in (("DAIN", eval_model, 45),
+                                ("slowmo", slowmo_model, 437)):
+            rect = model.rectifyNet
+            x = torch.rand(1, cin, H, W, device=dev)
+            h1 = rect.block1(x)
+            w6 = rect.trunk_weights()
+            trunk = RB.fused_resblocks(h1, w6)
+
+            def heads(m=model):
+                tr = m.initScaleNets_filter(torch.cat([i0, i2], 1))
+                return (m.initScaleNets_filter1(tr),
+                        m.initScaleNets_filter2(tr))
+
+            stages = [("MonoNet5 + 2 heads", heads),
+                      (f"rectifier 7x7 conv {cin}->128 + ReLU",
+                       lambda r=rect, x=x: r.block1(x)),
+                      ("rectifier trunk (K4, 6 launches)",
+                       lambda h=h1, w=w6: RB.fused_resblocks(h, w)),
+                      ("rectifier 3x3 conv 128->3",
+                       lambda r=rect, t=trunk: r.block5(t)),
+                      ("whole rectifier", lambda r=rect, x=x: r(x))]
+            if tag == "slowmo":
+                frames = torch.cat([i0, i2], 0)
+                stages.append(("S2DF", lambda m=model: m.ctxNet(frames)))
+            for name, fn in stages:
+                ms = statistics.median(cuda_times_ms(fn, 3, 15))
+                print(f"[profile] bf16 {tag} stage {name}: {ms:.3f} ms")
+
+
+def phase_bf16_profile(eval_model, slowmo_model, i0, i2) -> None:
+    """torch.profiler over whole bf16 forwards: busy share, the largest
+    device kernels, each kernel's device time a launch."""
+    with torch.inference_mode():
+        _profile_whole("bf16 DAIN forward", lambda: eval_model(i0, i2), 3,
+                       tuple(PATHS["eval_forward_bf16"]))
+        _profile_whole("bf16 slow-motion forward",
+                       lambda: slowmo_model(i0, i2), 3,
+                       tuple(PATHS["slowmo_forward_bf16"]))
 
 
 def main() -> None:
@@ -938,17 +1292,27 @@ def main() -> None:
     train_model, opt, batch, train_launches = phase_train(dev)
     phase_train_vs_cpu(dev)
     step_ms = phase_train_times(train_model, opt, batch)
-    print(f"[time] the paths checked and timed: "
+    print(f"[time] the float32 paths checked and timed: "
+          f"{time.perf_counter() - t0:.1f} s")
+    eval_bf16, i0, i2, eval_bf16_launches = phase_eval_bf16(dev)
+    slowmo_bf16, _, _, slowmo_bf16_launches = phase_slowmo_bf16(dev)
+    mb_launches = phase_middlebury(dev)
+    print(f"[time] the bf16 paths checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
+    phase_bf16_stages(dev, eval_bf16, slowmo_bf16, i0, i2)
     phase_slowmo_profile(dev, slowmo_ms)
     phase_train_profile(train_model, opt, batch, step_ms)
+    phase_bf16_profile(eval_bf16, slowmo_bf16, i0, i2)
     phase_device_times(cases, times)
     done = {key: {"kernel": c["kernel"], "max_abs_err": c["err"], **times[key]}
             for key, c in cases.items()}
     per_path = {"eval_forward": eval_launches, "train_step": train_launches,
-                "slowmo_forward": slowmo_launches}
+                "slowmo_forward": slowmo_launches,
+                "eval_forward_bf16": eval_bf16_launches,
+                "slowmo_forward_bf16": slowmo_bf16_launches,
+                "middlebury_bf16": mb_launches}
     print(f"[launches] {per_path}")
     rows = []
     for name, (src, rep) in KERNELS.items():
@@ -959,7 +1323,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(n[name] for n in per_path.values()),
             "launches_per_path": {p: n[name] for p, n in per_path.items()},
-            "case": main_case, **fields(main_case), "library_ms": None,
+            "case": main_case, **fields(main_case),
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})

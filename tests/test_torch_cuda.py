@@ -11,7 +11,12 @@ sums, weight sum included, and its average relative to max(1, |plain|).  Gradien
 tensor's largest magnitude (at least 1), since the image gradient's atomic
 adds pile up at the frame's edge.  The kernels take float32 only, so
 ``torch.autograd.gradcheck`` (float64) does not apply: the backward kernels
-are held to the autograd of the plain forwards.
+are held to the autograd of the plain forwards.  The bf16 trunk
+(``fused_resblocks``) against its plain version: |diff| <= 2^-6 x max(1,
+max |plain|), two bf16 ulps of the largest output (the sums run in another
+order, a bf16 rounding flips by one ulp now and then, and the chain of six
+convs carries the flips on; chip_smoke.py also holds each launch to one
+plain conv elementwise).
 """
 import pytest
 
@@ -145,7 +150,8 @@ def test_dain_cuda_matches_cpu(dev):
                                     "flow_project_finalize": 1,
                                     "filter_interpolate_bwd": 0,
                                     "flow_project_scatter_bwd": 0,
-                                    "filter_interpolate_ctx": 0}
+                                    "filter_interpolate_ctx": 0,
+                                    "fused_resblocks": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -250,7 +256,8 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "flow_project_finalize": 0,
                                 "filter_interpolate_bwd": 1,
                                 "flow_project_scatter_bwd": 1,
-                                "filter_interpolate_ctx": 0}
+                                "filter_interpolate_ctx": 0,
+                                "fused_resblocks": 0}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -284,10 +291,82 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "flow_project_finalize": 3,
                                     "filter_interpolate_bwd": 0,
                                     "flow_project_scatter_bwd": 0,
-                                    "filter_interpolate_ctx": 3}
+                                    "filter_interpolate_ctx": 3,
+                                    "fused_resblocks": 0}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
     for frames_a, frames_b in zip(got["outputs"], want["outputs"]):
         for a, b in zip(frames_a, frames_b):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-4)
+
+
+def _trunk_inputs(g, n, h, w):
+    """A bf16 activation as block 1's ReLU leaves it and six conv weights
+    at the rectifier's init (normal, std sqrt(2 / (9 * 128)))."""
+    x = torch.relu(torch.randn(n, 128, h, w, generator=g)).bfloat16()
+    w6 = (torch.randn(6, 128, 128, 3, 3, generator=g)
+          * (2.0 / (9 * 128)) ** 0.5).bfloat16()
+    return x, w6
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 64, 128), (2, 37, 75)])
+def test_fused_resblocks_kernel(dev, n, h, w):
+    """K4 six times a call; the second shape has ragged tile edges."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import rectify
+    x, w6 = (t.to(dev) for t in _trunk_inputs(torch.Generator().manual_seed(8),
+                                              n, h, w))
+    before = kernels.LAUNCHES["fused_resblocks"]
+    got = rectify.fused_resblocks(x, w6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_resblocks"] == before + 6
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = rectify.fused_resblocks_plain(x, w6).float()
+    scale = want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    assert scale > 4.0 and err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_fused_resblocks_rejects_grad_and_float32(dev):
+    from vfidkr_torch.ops import rectify
+    x, w6 = (t.to(dev) for t in _trunk_inputs(torch.Generator().manual_seed(9),
+                                              1, 8, 8))
+    with pytest.raises(RuntimeError, match="no backward"):
+        rectify.fused_resblocks(x.float().requires_grad_(), w6)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rectify.fused_resblocks(x.float(), w6)
+
+
+def test_dain_bf16_launches_fused_resblocks(dev):
+    """One bf16 DAIN forward: K1-K3 once, K4 six times (one rectifier call);
+    the outputs finite and near the float32 lane's (chip_smoke.py's bounds
+    on the mean and max |diff|)."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import DAIN
+    g = torch.Generator().manual_seed(2)
+    f32 = DAIN(generator=g).eval()
+    with torch.no_grad():
+        for p in f32.parameters():
+            p.mul_(0.5)
+    bf16 = DAIN(compute_dtype="bfloat16")
+    bf16.load_state_dict(f32.state_dict())
+    i0 = torch.rand(1, 3, 64, 128, generator=g).to(dev)
+    i2 = torch.rand(1, 3, 64, 128, generator=g).to(dev)
+    f32, bf16 = f32.to(dev), bf16.to(dev)
+    with torch.inference_mode():
+        want = f32(i0, i2)
+        kernels.reset_launches()
+        got = bf16(i0, i2)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"filter_interpolate_fwd": 1,
+                                "flow_project_scatter": 1,
+                                "flow_project_finalize": 1,
+                                "filter_interpolate_bwd": 0,
+                                "flow_project_scatter_bwd": 0,
+                                "filter_interpolate_ctx": 0,
+                                "fused_resblocks": 6}
+    for a, b in zip(got["outputs"], want["outputs"]):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        d = (a - b).abs()
+        assert d.mean().item() <= 0.02 and d.max().item() <= 0.25

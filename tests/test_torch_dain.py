@@ -117,7 +117,9 @@ def test_port_imports_no_jax():
             "vfidkr_torch.models.megadepth, vfidkr_torch.models.s2df, "
             "vfidkr_torch.convert, vfidkr_torch.ops, vfidkr_torch.kernels, "
             "vfidkr_torch.training, vfidkr_torch.data.vimeo90k, "
-            "vfidkr_torch.apps.train; "
+            "vfidkr_torch.apps.train, vfidkr_torch.apps.demo_middlebury, "
+            "vfidkr_torch.apps.eval_vimeo, vfidkr_torch.config, "
+            "vfidkr_torch.utils, vfidkr_torch.ops.rectify; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'jaxlib', 'vfidkr_tpu')); "
             "assert not bad, bad")

@@ -9,12 +9,13 @@ previous epoch deleted, the best-on-validation checkpoint, and one row per
 epoch in ``log.txt`` (epoch, lr scale, train loss, val loss, val PSNR).
 
 Usage:
-  python -m vfidkr_torch.apps.train --device cuda \\
+  python -m vfidkr_torch.apps.train \\
       --dataset-path /data/vimeo_triplet --save-path runs/x \\
-      [--batch-size 3] [--num-epochs 50] [--lr 2e-3] ...
+      [--batch-size 3] [--num-epochs 50] [--lr 2e-3] [--device cuda] ...
 
-``--device`` is required and nothing falls back to the CPU.  Decoding the
-PNG frames needs PIL.
+It trains on the card (``--device`` defaults to ``cuda``) unless asked for
+the CPU (``--device cpu``); nothing falls back.  Decoding the PNG frames
+needs PIL.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ import torch
 
 
 def parse_args(argv=None):
+    from vfidkr_torch.config import add_device_flag
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", required=True,
-                    help="torch device, e.g. cuda or cuda:0 (or cpu)")
+    add_device_flag(ap)
     ap.add_argument("--dataset-path", required=True)
     ap.add_argument("--save-path", required=True)
     ap.add_argument("--net-name", default="DAIN", choices=["DAIN"])
@@ -67,10 +68,10 @@ def main(argv=None) -> None:
                                             vimeo90k_splits)
     from vfidkr_torch.models import DAIN
     from vfidkr_torch.training import (CheckpointManager, TrainConfig,
-                                       eval_step, filtered_partial_load,
-                                       full_state, make_optimizer,
-                                       plateau_init, plateau_step,
-                                       restore_full_state, train_step)
+                                       eval_step, full_state, load_weights,
+                                       make_optimizer, plateau_init,
+                                       plateau_step, restore_full_state,
+                                       train_step)
 
     device = torch.device(args.device)
     os.makedirs(args.save_path, exist_ok=True)
@@ -101,9 +102,7 @@ def main(argv=None) -> None:
 
     model = DAIN(generator=torch.Generator().manual_seed(args.seed))
     if args.pretrained:
-        sd = torch.load(args.pretrained, map_location="cpu",
-                        weights_only=True)
-        loaded, _ = filtered_partial_load(model, sd.get("model", sd))
+        loaded, _ = load_weights(model, args.pretrained)
         print(f"fine-tuning: loaded {len(loaded)} tensors from "
               f"{args.pretrained}")
     model = model.to(device)

@@ -14,7 +14,8 @@ from vfidkr_torch.kernels import build
 
 KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
            "flow_project_finalize", "filter_interpolate_bwd",
-           "flow_project_scatter_bwd", "filter_interpolate_ctx")
+           "flow_project_scatter_bwd", "filter_interpolate_ctx",
+           "fused_resblocks")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -23,13 +24,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check_inputs(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor."""
+def check_inputs(name: str, *tensors: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
     if len({t.device for t in tensors}) != 1:

@@ -19,6 +19,15 @@ Batching both directions means each CUDA kernel launches once per forward
 the reference checkpoint's names (``initScaleNets_filter``,
 ``initScaleNets_filter1/2``, ``flownets``, ``rectifyNet``; DAIN_slowmotion
 adds ``ctxNet`` and ``depthNet``).
+
+``compute_dtype="bfloat16"`` selects the fast-eval lane of the JAX package
+(``dain.py:57-65, 134-170, 190-194, 248-263, 322-324``): MonoNet5 and the
+heads, the rectifier (its residual trunk through the kernel
+``fused_resblocks``) and, in DAIN_slowmotion, S2DF run in bf16; their
+outputs are cast to float32 (the rectifier's before ``+ cur_output``).
+PWC-Net, MegaDepth and the projection and warp ops stay float32.  The lane
+is evaluation only: a bf16 model is built in eval mode and ``train()``
+raises.  ``"float32"``, the default, is the reference's arithmetic.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vfidkr_torch.models.layers import upsample_bilinear
+from vfidkr_torch.models.layers import lane_dtype, upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
 from vfidkr_torch.models.mononet import BranchHead, MonoNet5
@@ -40,15 +49,36 @@ DIV_FLOW = 20.0
 TIMESTEP = 0.5
 
 
+def _eval_only(model: nn.Module, mode: bool, why: str) -> nn.Module:
+    if mode:
+        raise NotImplementedError(f"{type(model).__name__} is evaluation "
+                                  f"only in vfidkr_torch: {why}")
+    return nn.Module.train(model, False)
+
+
+_BF16_WHY = ("the bf16 lane's rectifier trunk (the kernel fused_resblocks) "
+             "has no backward, and no training app runs the lane")
+
+
 class DAIN(nn.Module):
-    def __init__(self, generator: torch.Generator | None = None):
+    def __init__(self, generator: torch.Generator | None = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
-        g = generator
-        self.initScaleNets_filter = MonoNet5(generator=g)
-        self.initScaleNets_filter1 = BranchHead(generator=g)
-        self.initScaleNets_filter2 = BranchHead(generator=g)
+        g, dt = generator, lane_dtype(compute_dtype)
+        self.compute_dtype = dt
+        self.initScaleNets_filter = MonoNet5(generator=g, compute_dtype=dt)
+        self.initScaleNets_filter1 = BranchHead(generator=g, compute_dtype=dt)
+        self.initScaleNets_filter2 = BranchHead(generator=g, compute_dtype=dt)
         self.flownets = PWCDCNet(generator=g)
-        self.rectifyNet = MultipleBasicBlock(45, 128, generator=g)
+        self.rectifyNet = MultipleBasicBlock(45, 128, generator=g,
+                                             compute_dtype=dt)
+        if dt != torch.float32:
+            self.train(False)
+
+    def train(self, mode: bool = True) -> "DAIN":
+        if self.compute_dtype != torch.float32:
+            return _eval_only(self, mode, _BF16_WHY)
+        return super().train(mode)
 
     def forward(self, i0: torch.Tensor, i2: torch.Tensor) -> dict:
         """i0, i2: (B,3,H,W) frames, H and W multiples of 64.
@@ -57,8 +87,8 @@ class DAIN(nn.Module):
         off1], "filters": [filt0, filt1]}``."""
         b = i0.shape[0]
         trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
-        filt0 = self.initScaleNets_filter1(trunk)
-        filt1 = self.initScaleNets_filter2(trunk)
+        filt0 = self.initScaleNets_filter1(trunk).float()
+        filt1 = self.initScaleNets_filter2(trunk).float()
 
         raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
         flows = upsample_bilinear(
@@ -74,7 +104,7 @@ class DAIN(nn.Module):
 
         rectify_input = torch.cat(
             [cur_output, ref0, ref2, off0, off1, filt0, filt1], 1)
-        rectified = self.rectifyNet(rectify_input) + cur_output
+        rectified = self.rectifyNet(rectify_input).float() + cur_output
         return {"outputs": [cur_output, rectified],
                 "offsets": [off0, off1],
                 "filters": [filt0, filt1]}
@@ -107,28 +137,28 @@ class DAINSlowMotion(nn.Module):
     """
 
     def __init__(self, timestep: float = 0.5,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
-        g = generator
+        g, dt = generator, lane_dtype(compute_dtype)
+        self.compute_dtype = dt
         self.timestep = timestep
         self.num_frames = int(round(1.0 / timestep)) - 1
-        self.initScaleNets_filter = MonoNet5(generator=g)
-        self.initScaleNets_filter1 = BranchHead(generator=g)
-        self.initScaleNets_filter2 = BranchHead(generator=g)
-        self.ctxNet = S2DF(generator=g)
+        self.initScaleNets_filter = MonoNet5(generator=g, compute_dtype=dt)
+        self.initScaleNets_filter1 = BranchHead(generator=g, compute_dtype=dt)
+        self.initScaleNets_filter2 = BranchHead(generator=g, compute_dtype=dt)
+        self.ctxNet = S2DF(generator=g, compute_dtype=dt)
         self.depthNet = MegaDepthHourglass(generator=g)
         # 3*3 + 2*2 + 2*16 + 2*196 = 437 input channels
-        self.rectifyNet = MultipleBasicBlock(437, 128, generator=g)
+        self.rectifyNet = MultipleBasicBlock(437, 128, generator=g,
+                                             compute_dtype=dt)
         self.flownets = PWCDCNet(generator=g)
-        super().train(False)
+        self.train(False)
 
     def train(self, mode: bool = True) -> "DAINSlowMotion":
-        if mode:
-            raise NotImplementedError(
-                "DAINSlowMotion is evaluation only in vfidkr_torch: the depth "
-                "projection's backward and MegaDepth's batch statistics are "
-                "not ported yet")
-        return super().train(False)
+        return _eval_only(
+            self, mode, "the depth projection's backward and MegaDepth's "
+            "batch statistics are not ported yet")
 
     def forward(self, i0: torch.Tensor, i2: torch.Tensor) -> dict:
         """i0, i2: (B,3,H,W) frames, H and W multiples of 64.
@@ -143,8 +173,8 @@ class DAINSlowMotion(nn.Module):
         ctx = torch.cat([self.ctxNet(frames), log_depth.detach()], 1)
 
         trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
-        filt0 = self.initScaleNets_filter1(trunk)
-        filt1 = self.initScaleNets_filter2(trunk)
+        filt0 = self.initScaleNets_filter1(trunk).float()
+        filt1 = self.initScaleNets_filter2(trunk).float()
         filt = torch.cat([filt0, filt1], 0)
         raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
 
@@ -163,7 +193,7 @@ class DAINSlowMotion(nn.Module):
                 [out, ref0, ref2, off0, off1, filt0, filt1, ctx_w[:b],
                  ctx_w[b:]], 1)
             outputs.append(out)
-            rectified.append(self.rectifyNet(rectify_input) + out)
+            rectified.append(self.rectifyNet(rectify_input).float() + out)
         return {"outputs": [outputs, rectified],
                 "offsets": [off0, off1],
                 "filters": [filt0, filt1]}

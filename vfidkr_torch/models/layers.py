@@ -3,9 +3,18 @@
 Counterpart of ``vfidkr_tpu/models/layers.py``: the three torch-matching
 inits (:46-69), flax's default ``nn.Conv`` init (lecun normal, which
 MegaDepth uses), ``leaky_relu``, ``upsample_bilinear``, the 2x2 pools and
-the nearest upsample (:203-213, 289-292).  Convolutions are ``nn.Conv2d`` /
-``nn.ConvTranspose2d`` themselves, created uninitialised and then filled
+the nearest upsample (:203-213, 289-292).  Convolutions are ``Conv2d``
+(below) and ``nn.ConvTranspose2d``, created uninitialised and then filled
 from a ``torch.Generator`` by the named init; biases start at 0.
+
+The bf16 eval lane (``conv_compute_dtype`` of the JAX package, :20-43 and
+:120-146) is a construction argument, ``compute_dtype``, not a context: a
+``Conv2d`` made with ``torch.bfloat16`` casts its input and weight to bf16,
+convolves (bf16 out, float32 sums) and then adds the bias cast to bf16, in
+bf16, as the JAX ``Conv`` does.  Parameters stay float32, so one
+state_dict serves both lanes.  ``torch.autocast`` is not used: its rules
+are not the JAX package's, and it would reach PWC-Net and MegaDepth, which
+stay float32 in the lane.
 """
 
 from __future__ import annotations
@@ -39,13 +48,40 @@ def _fill(weight, init, fan_in, fan_out, generator):
             raise ValueError(f"unknown init {init!r}")
 
 
+def lane_dtype(compute_dtype: str | torch.dtype) -> torch.dtype:
+    """``"float32"`` / ``"bfloat16"`` (or the torch dtype) -> torch dtype."""
+    dt = getattr(torch, compute_dtype) if isinstance(compute_dtype, str) \
+        else compute_dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype!r}")
+    return dt
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (see the module doc);
+    float32 is ``nn.Conv2d`` itself."""
+
+    compute_dtype = torch.float32      # set per instance by ``conv``
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(-1, 1, 1)
+        return y
+
+
 def conv(cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
          padding: int = 1, dilation: int = 1, bias: bool = True,
-         init: str = "xavier",
-         generator: torch.Generator | None = None) -> nn.Conv2d:
-    """``nn.Conv2d`` with the named init and a zero bias."""
-    m = skip_init(nn.Conv2d, cin, cout, kernel_size, stride=stride,
+         init: str = "xavier", generator: torch.Generator | None = None,
+         compute_dtype: torch.dtype = torch.float32) -> Conv2d:
+    """``Conv2d`` with the named init and a zero bias."""
+    m = skip_init(Conv2d, cin, cout, kernel_size, stride=stride,
                   padding=padding, dilation=dilation, bias=bias)
+    m.compute_dtype = compute_dtype
     k2 = kernel_size * kernel_size
     _fill(m.weight, init, k2 * cin, k2 * cout, generator)
     if bias:

@@ -1,7 +1,11 @@
 """MonoNet5 kernel-prediction U-Net and its branch heads, NCHW.
 
 Counterpart of ``vfidkr_tpu/models/mononet.py:44-132`` (reference
-``networks/DAIN.py:394-471``), chained evaluation only.  The children carry
+``networks/DAIN.py:394-471``), chained evaluation only.  With
+``compute_dtype=torch.bfloat16`` (the bf16 eval lane) every conv runs in
+bf16 and the activations stay bf16: ReLU, max-pool, the bilinear x2
+upsample and the skip adds; the caller casts the heads' outputs to
+float32.  The children carry
 the reference's flattened ``ModuleList`` indices (``0, 2, 5, ..., 32``), so
 the parameter names are the reference checkpoint's keys.
 
@@ -28,10 +32,12 @@ _TRUNK = [(0, 6, 16), (2, 16, 32), (5, 32, 64), (8, 64, 128), (11, 128, 256),
 class MonoNet5(nn.Module):
     """(B,6,H,W) with H, W divisible by 32 -> (B,16,H,W)."""
 
-    def __init__(self, generator: torch.Generator | None = None):
+    def __init__(self, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         for idx, cin, cout in _TRUNK:
-            self.add_module(str(idx), conv(cin, cout, generator=generator))
+            self.add_module(str(idx), conv(cin, cout, generator=generator,
+                                           compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [self._modules[str(idx)] for idx, _, _ in _TRUNK]
@@ -52,6 +58,8 @@ class BranchHead(nn.Sequential):
     """conv(16,16) + ReLU + conv(16,16): the raw per-pixel 4x4 kernels
     (reference children ``0`` and ``2``)."""
 
-    def __init__(self, generator: torch.Generator | None = None):
-        super().__init__(conv(16, 16, generator=generator), nn.ReLU(),
-                         conv(16, 16, generator=generator))
+    def __init__(self, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
+        g, dt = generator, compute_dtype
+        super().__init__(conv(16, 16, generator=g, compute_dtype=dt),
+                         nn.ReLU(), conv(16, 16, generator=g, compute_dtype=dt))

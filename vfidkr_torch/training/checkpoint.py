@@ -42,6 +42,21 @@ def filtered_partial_load(model: nn.Module,
     return sorted(keep), sorted(skipped)
 
 
+def load_weights(model: nn.Module, path: str):
+    """Load weights from ``path`` into ``model`` by ``filtered_partial_load``:
+    a reference ``.pth`` state dict (under a ``state_dict`` entry or not,
+    ``module.`` prefixes stripped, as the JAX package's loader reads them,
+    ``vfidkr_tpu/convert/torch_loader.py:24-34``) or a checkpoint of the
+    port's trainer (its ``model`` entry).  Returns (loaded, skipped)."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    for entry in ("model", "state_dict"):
+        if isinstance(data.get(entry), Mapping):
+            data = data[entry]
+            break
+    return filtered_partial_load(
+        model, {k.removeprefix("module."): v for k, v in data.items()})
+
+
 def full_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                plateau: PlateauState, epoch: int, best_val: float) -> dict:
     return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
