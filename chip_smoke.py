@@ -49,7 +49,8 @@ session comes last (7), since host-bound timings read slower after one:
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
-   and (3,128,320,448)), with the tolerance stated; the backward kernels
+   and (3,128,320,448), and checked at the ragged (2,128,37,75)), with the
+   tolerance stated; the backward kernels
    against the autograd of the plain forwards; each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
    its yardstick, the same six convs as bf16 cuDNN calls; and its bound: the
@@ -101,8 +102,10 @@ HBM_BYTES_S = 3.35e12           # H100 SXM HBM3
 F32_FLOP_S = 67e12              # H100 SXM float32, CUDA cores
 BF16_FLOP_S = 989e12            # H100 SXM bf16, tensor cores, dense
 # K4's shapes: the DAIN eval trunk, the padded Middlebury 640x480 frame, and
-# a batch of three at the padded Vimeo-90K width
+# a batch of three at the padded Vimeo-90K width; and a ragged one (tiles cut
+# at the frame's edge on both axes), checked per launch and per call only
 K4_SHAPES = ((1, 128, H, W), (1, 128, 512, 704), (3, 128, 320, 448))
+K4_RAGGED = (2, 128, 37, 75)
 K4_TOL = 2.0 ** -6              # two bf16 ulps, see _compare_k4
 # The bf16 lane against the float32 lane on the rectified frame.  JAX's own
 # lane is max 0.035, mean 0.0076, 40.3 dB off its float32 forward at 64x64
@@ -383,17 +386,22 @@ def phase_kernels(dev: torch.device) -> dict:
          _nbytes(flow, acc_cot[:, :2], flow), proj_px * 8)
 
     # the bf16 lane's rectifier trunk: six launches a call; its yardstick is
-    # the same six convs as bf16 cuDNN calls
+    # the same six convs as bf16 cuDNN calls on channels-last tensors, the
+    # layout the kernel takes.  The wrapper is timed on an NCHW input, as
+    # block1 leaves it on the paths: its NCHW -> NHWC copy and the weight
+    # packing count in its time a call.
+    _compare_k4(K4_RAGGED, *(t.to(dev) for t in _trunk_inputs(g, K4_RAGGED)))
     for shape in K4_SHAPES:
         x, w6 = (t.to(dev) for t in _trunk_inputs(g, shape))
         err = _compare_k4(shape, x, w6)
+        x_cl = x.contiguous(memory_format=torch.channels_last)
         n, c, h, w = shape
         case(f"K4 {shape}", "fused_resblocks",
              lambda x=x, w6=w6: RB.fused_resblocks(x, w6),
              lambda x=x, w6=w6: RB.fused_resblocks_plain(x, w6), err,
              2 * _nbytes(x) + _nbytes(w6), RB.N_CONVS * 2 * c * c * 9 * n * h * w,
              peak=BF16_FLOP_S, per_call=RB.N_CONVS,
-             library=lambda x=x, w6=w6: cudnn_chain(x, w6))
+             library=lambda x=x_cl, w6=w6: cudnn_chain(x, w6))
     torch.cuda.synchronize()
     return cases
 
@@ -423,20 +431,22 @@ def _compare_k4(shape, x, w6) -> float:
     """K4 against its plain version, per launch and per call.
 
     Per launch, each of the six convs from the same bf16 inputs as its
-    plain conv: |kernel - plain| <= K4_TOL * max(1, |plain|) elementwise
-    (the sums run in another order, so a bf16 rounding flips by one ulp now
-    and then).  Per call: the chain carries those flips on through the
-    other convs, so an element's difference follows the activations' scale,
-    not its own value: |kernel - plain| <= K4_TOL * max(1, max |plain|).
-    Returns the call's max |kernel - plain|."""
+    plain conv, on channels-last tensors and the weights packed by the
+    wrapper's own helper: |kernel - plain| <= K4_TOL * max(1, |plain|)
+    elementwise (the sums run in another order, so a bf16 rounding flips by
+    one ulp now and then).  Per call, through the wrapper from an NCHW
+    input: the chain carries those flips on through the other convs, so an
+    element's difference follows the activations' scale, not its own value:
+    |kernel - plain| <= K4_TOL * max(1, max |plain|).  Returns the call's
+    max |kernel - plain|."""
     n, _, h, w = shape
-    taps = w6.permute(0, 3, 4, 2, 1).contiguous()
-    worst, h_in = 0.0, x
+    taps = RB.pack_trunk_weights(w6)
+    worst, h_in = 0.0, x.contiguous(memory_format=torch.channels_last)
     for k in range(RB.N_CONVS):
         res = None if k % 2 == 0 else block_in
         if k % 2 == 0:
             block_in = h_in
-        out = torch.empty_like(x)
+        out = torch.empty_like(h_in)
         kernels.launch("fused_resblocks", h_in, taps[k], res, out, n, h, w)
         pre = F.conv2d(h_in.float(), w6[k].float(), padding=1)
         want = F.relu(pre if res is None else pre + res.float()).bfloat16()

@@ -310,22 +310,57 @@ def _trunk_inputs(g, n, h, w):
     return x, w6
 
 
-@pytest.mark.parametrize("n,h,w", [(1, 64, 128), (2, 37, 75)])
-def test_fused_resblocks_kernel(dev, n, h, w):
-    """K4 six times a call; the second shape has ragged tile edges."""
+@pytest.mark.parametrize("n,h,w,layout", [
+    (1, 64, 128, "channels_last"), (2, 37, 75, "channels_last"),
+    (1, 5, 9, "channels_last"), (3, 16, 40, "channels_last"),
+    (2, 37, 75, "nchw")])
+def test_fused_resblocks_kernel(dev, n, h, w, layout):
+    """K4 six times a call: ragged tile edges (37 x 75), a frame narrower
+    than one 4 x 64 tile (5 x 9), N = 3, and an NCHW-contiguous input, which
+    the wrapper converts; the result is channels-last."""
     from vfidkr_torch import kernels
     from vfidkr_torch.ops import rectify
     x, w6 = (t.to(dev) for t in _trunk_inputs(torch.Generator().manual_seed(8),
                                               n, h, w))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
     before = kernels.LAUNCHES["fused_resblocks"]
     got = rectify.fused_resblocks(x, w6)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fused_resblocks"] == before + 6
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
     want = rectify.fused_resblocks_plain(x, w6).float()
     scale = want.abs().max().item()
     err = (got.float() - want).abs().max().item()
     assert scale > 4.0 and err <= 2.0 ** -6 * scale, (err, scale)
+
+
+def test_fused_resblocks_in_place_residual(dev):
+    """conv2 with its residual aliasing its output (as the wrapper runs it)
+    gives the bits of the same launch into a separate buffer, and one launch
+    matches a plain conv elementwise within 2^-6 x max(1, |plain|)."""
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import rectify
+    x, w6 = (t.to(dev) for t in _trunk_inputs(torch.Generator().manual_seed(10),
+                                              2, 37, 75))
+    x = x.contiguous(memory_format=torch.channels_last)
+    res = torch.relu(torch.randn(x.shape, generator=torch.Generator()
+                                 .manual_seed(11))).bfloat16().to(dev)
+    res = res.contiguous(memory_format=torch.channels_last)
+    taps = rectify.pack_trunk_weights(w6)
+    n, _, h, w = x.shape
+    separate = torch.empty_like(x)
+    kernels.launch("fused_resblocks", x, taps[1], res, separate, n, h, w)
+    aliased = res.clone()
+    kernels.launch("fused_resblocks", x, taps[1], aliased, aliased, n, h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(separate, aliased)
+    want = F.relu(F.conv2d(x.float(), w6[1].float(), padding=1)
+                  + res.float()).bfloat16().float()
+    err = ((separate.float() - want).abs() / want.abs().clamp(min=1)).max()
+    assert err.item() <= 2.0 ** -6
 
 
 def test_fused_resblocks_rejects_grad_and_float32(dev):
@@ -336,6 +371,10 @@ def test_fused_resblocks_rejects_grad_and_float32(dev):
         rectify.fused_resblocks(x.float().requires_grad_(), w6)
     with pytest.raises(TypeError, match="bfloat16"):
         rectify.fused_resblocks(x.float(), w6)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rectify.fused_resblocks(x, w6.float())
+    with pytest.raises(ValueError, match="CUDA"):
+        rectify.fused_resblocks(x, w6.cpu())
 
 
 def test_dain_bf16_launches_fused_resblocks(dev):

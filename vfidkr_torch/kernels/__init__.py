@@ -25,15 +25,19 @@ def reset_launches() -> None:
 
 
 def check_inputs(name: str, *tensors: torch.Tensor,
-                 dtype: torch.dtype = torch.float32) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
+                 dtype: torch.dtype = torch.float32,
+                 memory_format: torch.memory_format = torch.contiguous_format
+                 ) -> None:
+    """Raise unless every tensor is a CUDA tensor of ``dtype``, contiguous
+    in ``memory_format``."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
+        if not t.is_contiguous(memory_format=memory_format):
+            raise ValueError(f"{name}: expected a contiguous tensor "
+                             f"({memory_format})")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
 

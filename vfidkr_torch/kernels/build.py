@@ -45,7 +45,7 @@ SIGNATURES = {
     "vfidkr_flow_project_scatter_bwd": [_P, _P, _P, _I, _I, _I, _P],
     # acc, out, n, h, w, stream
     "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _P],
-    # x, w (one conv's taps), res (or NULL), out, n, h, w, stream
+    # x, w (one conv's packed taps), res (or NULL), out (NHWC), n, h, w, stream
     "vfidkr_fused_resblocks": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -76,5 +76,8 @@ class MultipleBasicBlock(nn.Module):
         if self.compute_dtype == torch.float32:
             h = self.block4(self.block3(self.block2(h)))
         else:
+            # on CUDA the trunk returns channels-last; block5 takes it as it
+            # is, and the rectifier returns NCHW as the float32 lane does
             h = fused_resblocks(h, self.trunk_weights())
+            return self.block5(h).contiguous()
         return self.block5(h)
