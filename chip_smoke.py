@@ -50,7 +50,11 @@ session comes last (7), since host-bound timings read slower after one:
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
    and (3,128,320,448), and checked at the ragged (2,128,37,75)), with the
-   tolerance stated; the backward kernels
+   tolerance stated; K7 also on the paths' near-uniform move, across a sharp
+   flow discontinuity, at C = 9, 37 and 200 and at the ragged 37x75 and
+   37x76, each with the number of its tiles that took the direct gather; K3
+   also on a full-height edge band, runs of holes across word boundaries, an
+   all-hole field and at (1,3,512,704), each held to equality; the backward kernels
    against the autograd of the plain forwards; each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
    its yardstick, the same six convs as bf16 cuDNN calls; and its bound: the
@@ -72,8 +76,11 @@ import json
 import math
 import statistics
 import subprocess
+import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -90,6 +97,11 @@ from vfidkr_torch.ops import rectify as RB
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
                                    train_step)
 from vfidkr_torch.training.train_state import GROUPS
+
+# the flows and hole layouts that reach K7's and K3's branches, shared with
+# the card-only tests
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+import torch_geometry as geo  # noqa: E402
 
 N, H, W = 2, 256, 448           # both directions of one 448x256 frame pair
 C_CTX = 196                     # DAIN_slowmotion's context: S2DF + log-depth
@@ -218,6 +230,18 @@ def _compare(name, got, want) -> float:
     return err
 
 
+def _compare_k3(name, got, want) -> float:
+    """K3 against its plain version: equal bit for bit is expected (the same
+    IEEE divisions, the neighbours summed in the same order); where a case
+    is not, it says so and is held to ATOL * max(1, |plain|) instead."""
+    if torch.equal(got, want):
+        print(f"[kernels] {name}: equal to the plain version, bit for bit")
+        return 0.0
+    print(f"[kernels] {name}: NOT bit-equal, {(got != want).sum().item()} "
+          f"values differ; held to the {ATOL:.0e} bound instead")
+    return _compare(name, got, want)
+
+
 def make_flow(g: torch.Generator) -> torch.Tensor:
     """A smooth random flow up to +-24 px (slopes under 0.5, so the
     projection folds little), about 5% of pixels pushed out of the frame, and
@@ -236,6 +260,10 @@ def make_flow(g: torch.Generator) -> torch.Tensor:
     return flow
 
 
+def _t(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(a).to(dev)
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -243,12 +271,13 @@ def _nbytes(*tensors) -> int:
 def _landings(flow, filter_bounds):
     """Count of pixels whose landing is valid for the warp (with its
     |f| < size/2 terms) or for the projection."""
+    h, w = flow.shape[-2:]
     fx, fy = flow[:, 0], flow[:, 1]
-    x2 = torch.arange(W, device=flow.device) + fx
-    y2 = torch.arange(H, device=flow.device).view(H, 1) + fy
-    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= W - 1) & (y2 <= H - 1)
+    x2 = torch.arange(w, device=flow.device) + fx
+    y2 = torch.arange(h, device=flow.device).view(h, 1) + fy
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
     if filter_bounds:
-        valid &= (fx.abs() < W / 2) & (fy.abs() < H / 2)
+        valid &= (fx.abs() < w / 2) & (fy.abs() < h / 2)
     return int(valid.sum().item())
 
 
@@ -290,22 +319,51 @@ def phase_kernels(dev: torch.device) -> dict:
                       "bytes": nbytes, "ops": ops, "peak": peak,
                       "library": library, "per_call": per_call}
 
-    # the warp: K1 on the frames; K7, and K1 for comparison, on the context
-    for key, kernel, img in (("K1 C=3", "filter_interpolate_fwd", image),
-                             ("K7 C=196", "filter_interpolate_ctx", ctx),
-                             ("K1 C=196", "filter_interpolate_fwd", ctx)):
+    # the warp: K1 on the frames; K7, and K1 for comparison, on the context;
+    # K7 also on the paths' near-uniform move, across a sharp discontinuity
+    # (tiles past its staging box), at other channel counts and at a ragged
+    # frame (partial tiles and channel chunks)
+    rng = np.random.RandomState(0)
+    rags = [(2, 37, 75), (2, 37, 76)]   # W % 4: 4- and 16-byte staging copies
+    warps = [("K1 C=3", image, flow, filt), ("K7 C=196", ctx, flow, filt),
+             ("K1 C=196", ctx, flow, filt),
+             ("K7 C=196 near-uniform", ctx,
+              _t(geo.smooth_flow(rng, N, H, W, 0.5, (5.3, -3.1)), dev), filt),
+             ("K7 C=196 discontinuity", ctx,
+              _t(geo.discontinuous_flow(rng, N, H, W), dev), filt)]
+    warps += [(f"K7 C={c}", torch.rand(N, c, H, W, generator=g).to(dev),
+               flow, filt) for c in (9, 37, 200)]
+    for rag in rags:
+        flow_rag = _t(geo.smooth_flow(rng, *rag, 8.0), dev)
+        filt_rag = torch.randn(rag[0], 16, *rag[1:], generator=g).to(dev)
+        warps += [(f"K7 C={c} {rag}",
+                   torch.rand(rag[0], c, *rag[1:], generator=g).to(dev),
+                   flow_rag, filt_rag) for c in (9, C_CTX)]
+    for key, img, fl, fi in warps:
+        kernel = ("filter_interpolate_fwd" if key.startswith("K1")
+                  else "filter_interpolate_ctx")
         fn = _k1_direct if key == "K1 C=196" else FI.filter_interpolate
         if key != "K1 C=196" and FI.forward_kernel(img.shape[1]) != kernel:
             raise AssertionError(f"{key}: the wrapper dispatches to "
                                  f"{FI.forward_kernel(img.shape[1])}")
-        args = (img, flow, filt)
-        err = _compare(f"{kernel} at {tuple(img.shape)}", fn(*args),
+        args = (img, fl, fi)
+        err = _compare(f"{kernel} {key} at {tuple(img.shape)}", fn(*args),
                        FI.filter_interpolate_plain(*args))
         # 16 weights of 3 multiplies, then 16 multiply-adds per channel
         case(key, kernel, lambda fn=fn, a=args: fn(*a),
              lambda a=args: FI.filter_interpolate_plain(*a), err,
-             _nbytes(img, flow, filt, img),
-             warp_px * (48 + 32 * img.shape[1]))
+             _nbytes(img, fl, fi, img),
+             _landings(fl, True) * (48 + 32 * img.shape[1]))
+        if kernel == "filter_interpolate_ctx":
+            n, _, h, w = img.shape
+            tiles = n * math.ceil(h / 8) * math.ceil(w / 32)
+            _, direct = FI.filter_interpolate_ctx_counted(*args)
+            cases[key]["direct_tiles"] = direct
+            print(f"[kernels] {key}: {direct} of {tiles} 8x32 tiles took "
+                  f"the direct gather, the others staged their windows")
+            if key.endswith("discontinuity") and direct == 0:
+                raise AssertionError(f"{key}: no tile took the direct "
+                                     f"gather")
 
     # the projection: K2 plain and depth-weighted, then K3
     acc_k = FP.scatter4(flow)
@@ -324,8 +382,8 @@ def phase_kernels(dev: torch.device) -> dict:
 
     holes = (acc_k[:, 2] <= 0).float().mean().item()
     fin_k = FP.finalize(acc_k)
-    err = _compare(f"flow_project_finalize ({holes:.2%} holes)", fin_k,
-                   FP.finalize_plain(acc_k))
+    err = _compare_k3(f"flow_project_finalize ({holes:.2%} holes)", fin_k,
+                      FP.finalize_plain(acc_k))
     _compare("flow_project, both kernels vs the plain chain", fin_k,
              FP.finalize_plain(acc_p))
     case("K3", "flow_project_finalize", lambda: FP.finalize(acc_k),
@@ -345,11 +403,36 @@ def phase_kernels(dev: torch.device) -> dict:
          lambda: FP.scatter4_plain(flow, depth_inv), err,
          _nbytes(flow, depth_inv, wacc_k), proj_px * 15)
     wfin_k = FP.finalize(wacc_k)
-    _compare("flow_project_finalize on the weighted sums", wfin_k,
-             FP.finalize_plain(wacc_k))
+    err = _compare_k3("flow_project_finalize on the weighted sums", wfin_k,
+                      FP.finalize_plain(wacc_k))
+    case("K3 depth-weighted", "flow_project_finalize",
+         lambda: FP.finalize(wacc_k), lambda: FP.finalize_plain(wacc_k), err,
+         _nbytes(wacc_k, wfin_k), wacc_k[:, 2].numel() * 2)
     _compare("depth_flow_project, both kernels vs the plain chain",
              FP.depth_flow_project(flow, depth_inv, hole_fill=True),
              FP.finalize_plain(wacc_p))
+
+    # K3 on hole layouts: a full-height band of empty columns at the left
+    # edge (a uniform 24 px move), runs across word boundaries, no filled
+    # cell at all, and the Middlebury frame (704x512) under the paths' move
+    band = FP.scatter4(_t(geo.edge_band_flow(N, H, W), dev))
+    if not (band[:, 2, :, :24] <= 0).all():
+        raise AssertionError("the edge band's columns 0-23 are not empty")
+    for key, a in (("K3 edge band", band),
+                   ("K3 word-crossing runs",
+                    _t(geo.word_crossing_sums(rng, N, H, W), dev)),
+                   ("K3 all holes", torch.zeros(N, 3, H, W, device=dev)),
+                   ("K3 (1,3,512,704)", FP.scatter4(_t(geo.smooth_flow(
+                       rng, 1, 512, 704, 0.5, (5.3, -3.1)), dev)))):
+        holes = (a[:, 2] <= 0).float().mean().item()
+        got = FP.finalize(a)
+        err = _compare_k3(f"flow_project_finalize, {key[3:]} "
+                          f"({holes:.2%} holes)", got, FP.finalize_plain(a))
+        if key == "K3 all holes" and torch.count_nonzero(got).item():
+            raise AssertionError("the all-hole field did not fill with 0")
+        case(key, "flow_project_finalize", lambda a=a: FP.finalize(a),
+             lambda a=a: FP.finalize_plain(a), err, _nbytes(a, got),
+             a[:, 2].numel() * 2)
 
     # the backward kernels
     cot = torch.randn(N, 3, H, W, generator=g).to(dev)
@@ -1316,7 +1399,9 @@ def main() -> None:
     phase_train_profile(train_model, opt, batch, step_ms)
     phase_bf16_profile(eval_bf16, slowmo_bf16, i0, i2)
     phase_device_times(cases, times)
-    done = {key: {"kernel": c["kernel"], "max_abs_err": c["err"], **times[key]}
+    done = {key: {"kernel": c["kernel"], "max_abs_err": c["err"], **times[key],
+                  **({"direct_tiles": c["direct_tiles"]}
+                     if "direct_tiles" in c else {})}
             for key, c in cases.items()}
     per_path = {"eval_forward": eval_launches, "train_step": train_launches,
                 "slowmo_forward": slowmo_launches,

@@ -115,6 +115,60 @@ def test_depth_flow_project_kernels(dev):
         assert ((got - want).abs() / want.abs().clamp(min=1)).max() <= ATOL
 
 
+@pytest.mark.parametrize("kind, c, n, h, w", [
+    ("discontinuity", 196, 2, 64, 96),      # tiles past the staging box
+    ("near-uniform", 196, 2, 64, 96),       # the paths' move: every tile staged
+    ("smooth", 196, 2, 37, 75),             # ragged: partial tiles, 4-byte copies
+    ("smooth", 196, 2, 37, 76),             # ragged: partial tiles, 16-byte copies
+    ("smooth", 9, 2, 37, 75),               # one channel range, short chunks
+    ("smooth", 37, 2, 64, 96),
+    ("smooth", 200, 1, 40, 72),             # four ranges of 50 channels
+])
+def test_filter_interpolate_ctx_geometry(dev, kind, c, n, h, w):
+    """K7's staged and direct-gather tiles against the plain version, with
+    the direct-gather tile count: |diff| <= 1e-5 x max(1, |plain|)."""
+    import numpy as np
+    import torch_geometry as geo
+    from vfidkr_torch.ops import filter_interpolation as FI
+    rng = np.random.RandomState(3)
+    flow = {"discontinuity": lambda: geo.discontinuous_flow(rng, n, h, w),
+            "near-uniform": lambda: geo.smooth_flow(rng, n, h, w, 0.5,
+                                                    (5.3, -3.1)),
+            "smooth": lambda: geo.smooth_flow(rng, n, h, w, 8.0)}[kind]()
+    image, flow, filt = (torch.from_numpy(a).to(dev)
+                         for a in geo.k7_inputs(rng, n, c, h, w, flow))
+    got, direct = FI.filter_interpolate_ctx_counted(image, flow, filt)
+    want = FI.filter_interpolate_plain(image, flow, filt)
+    assert ((got - want).abs() / want.abs().clamp(min=1)).max() <= ATOL
+    assert torch.equal(got, FI.filter_interpolate(image, flow, filt))
+    assert (direct > 0) == (kind == "discontinuity")
+
+
+@pytest.mark.parametrize("layout, n, h, w", [
+    ("edge band", 2, 64, 96), ("edge band", 1, 70, 75),
+    ("word-crossing runs", 2, 64, 128), ("word-crossing runs", 1, 70, 140),
+    ("all holes", 2, 40, 72)])
+def test_flow_project_finalize_layouts(dev, layout, n, h, w):
+    """K3's word scans on hole layouts: equal to the plain version bit for
+    bit (the same IEEE divisions, the neighbours summed in the same
+    order)."""
+    import numpy as np
+    import torch_geometry as geo
+    from vfidkr_torch.ops import flow_projection as FP
+    rng = np.random.RandomState(4)
+    if layout == "edge band":
+        acc = FP.scatter4(torch.from_numpy(geo.edge_band_flow(n, h, w)).to(dev))
+        assert bool((acc[:, 2, :, :24] <= 0).all())
+    elif layout == "word-crossing runs":
+        acc = torch.from_numpy(geo.word_crossing_sums(rng, n, h, w)).to(dev)
+    else:
+        acc = torch.zeros(n, 3, h, w, device=dev)
+    got = FP.finalize(acc)
+    assert torch.equal(got, FP.finalize_plain(acc))
+    if layout == "all holes":
+        assert not bool(got.any())
+
+
 def test_kernels_reject_bad_inputs(dev):
     from vfidkr_torch.ops import filter_interpolation as FI
     from vfidkr_torch.ops import flow_projection as FP

@@ -37,8 +37,9 @@ SIGNATURES = {
     # image, flow, filt, g, gimage (or NULL), gflow, gfilt, n, c, h, w, stream
     "vfidkr_filter_interpolate_bwd": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _P],
-    # image, flow, filt, out, n, c, h, w, stream
-    "vfidkr_filter_interpolate_ctx": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # image, flow, filt, out, n, c, h, w, direct-gather tile count (or NULL),
+    # stream
+    "vfidkr_filter_interpolate_ctx": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # flow, weight (or NULL), acc, n, h, w, stream
     "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _P],
     # flow, g, gflow, n, h, w, stream

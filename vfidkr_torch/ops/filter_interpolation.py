@@ -23,9 +23,9 @@ On CUDA tensors ``filter_interpolate`` launches a forward kernel chosen by
 the channel count, as the JAX package dispatches (``:682-688``):
 ``filter_interpolate_fwd`` (``vfidkr_torch/csrc/filter_interpolate.cu``,
 one thread per pixel) for C <= 8, and ``filter_interpolate_ctx``
-(``vfidkr_torch/csrc/filter_interpolate_ctx.cu``, one thread per pixel and
-group of channels) for wider tensors such as DAIN_slowmotion's 196-channel
-context.  Either is the forward of one autograd Function, whose backward is
+(``vfidkr_torch/csrc/filter_interpolate_ctx.cu``, a block per 8x32 tile
+and range of channels, its windows staged in shared memory) for wider
+tensors such as DAIN_slowmotion's 196-channel context.  Either is the forward of one autograd Function, whose backward is
 the kernel ``filter_interpolate_bwd``
 (``vfidkr_torch/csrc/filter_interpolate_bwd.cu``, generic in C).  On CPU
 tensors it runs ``filter_interpolate_plain`` for any C, and autograd gives
@@ -101,6 +101,29 @@ def forward_kernel(c: int) -> str:
             else "filter_interpolate_ctx")
 
 
+def _launch_ctx(image, flow, filt, direct_tiles):
+    out = torch.empty_like(image)
+    kernels.launch("filter_interpolate_ctx", image, flow, filt, out,
+                   *image.shape, direct_tiles)
+    return out
+
+
+def filter_interpolate_ctx_counted(image: torch.Tensor, flow: torch.Tensor,
+                                   filt: torch.Tensor
+                                   ) -> tuple[torch.Tensor, int]:
+    """``filter_interpolate_ctx`` on CUDA tensors (C > 8), forward only,
+    with the number of 8x32 tiles whose windows spread too far to stage in
+    shared memory and took the kernel's direct gather instead."""
+    _check_shapes(image, flow, filt)
+    kernels.check_inputs("filter_interpolate_ctx", image, flow, filt)
+    if image.shape[1] <= MAX_NARROW_C:
+        raise ValueError("filter_interpolate_ctx takes C > "
+                         f"{MAX_NARROW_C}, got {image.shape[1]}")
+    count = torch.zeros(1, dtype=torch.int32, device=image.device)
+    out = _launch_ctx(image, flow, filt, count)
+    return out, int(count.item())
+
+
 class _FilterInterpolateKernel(torch.autograd.Function):
     """Forward ``filter_interpolate_fwd`` (C <= 8) or
     ``filter_interpolate_ctx`` (C > 8), backward ``filter_interpolate_bwd``;
@@ -112,6 +135,8 @@ class _FilterInterpolateKernel(torch.autograd.Function):
         name = forward_kernel(c)
         kernels.check_inputs(name, image, flow, filt)
         ctx.save_for_backward(image, flow, filt)
+        if name == "filter_interpolate_ctx":
+            return _launch_ctx(image, flow, filt, None)
         out = torch.empty_like(image)
         kernels.launch(name, image, flow, filt, out, n, c, h, w)
         return out

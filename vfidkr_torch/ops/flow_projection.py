@@ -23,7 +23,9 @@ Three CUDA kernels carry it on the card:
   autograd Function whose backward is ``flow_project_scatter_bwd``
   (``vfidkr_torch/csrc/flow_project_scatter_bwd.cu``);
 * ``finalize``: the count average and hole fill, inference only
-  (``flow_project_finalize``, ``vfidkr_torch/csrc/flow_project_finalize.cu``).
+  (``flow_project_finalize``, ``vfidkr_torch/csrc/flow_project_finalize.cu``:
+  a block per 32x32 tile, whose holes find their nearest filled cells over
+  filled bitmasks, 32 cells a word).
 
 Each launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors.  The kernel's atomic adds make the summed flow depend on their order
