@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths, the DAIN eval forward, the DAIN train
-step and the DAIN_slowmotion 4x eval forward in float32, the same two eval
-forwards in the bf16 fast-eval lane, and the Middlebury eval app's core in
-that lane, on one NVIDIA GPU through its seven hand-written CUDA
-kernels, and check them.
+step, the DAIN_slowmotion 4x eval forward and the DAIN_slowmotion train step
+in float32, the same two eval forwards in the bf16 fast-eval lane, and the
+Middlebury eval app's core in that lane, on one NVIDIA GPU through its eight
+hand-written CUDA kernels, and check them.
 
 Run from the root of the repository, with no arguments:
 
@@ -11,7 +11,7 @@ Run from the root of the repository, with no arguments:
 
 Phases, each printing its own lines; any failure raises, so the script exits
 non-zero and prints no result line.  The paths are checked and timed first
-(3-5, then 5b-5d), the kernel cases next (6), and every torch.profiler
+(3-5a, then 5b-5d), the kernel cases next (6), and every torch.profiler
 session comes last (7), since host-bound timings read slower after one:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -34,6 +34,14 @@ session comes last (7), since host-bound timings read slower after one:
    every Adamax group moved; one eval step (hole fill, no backward kernel);
    one train step's gradients held to the same step on the CPU, per leaf;
    the train step's time (median of 20 after 5 warm-up) and peak memory;
+5a. slowmo_train: DAINSlowMotion(0.5).train() at full width, B=3 triplets
+   of 256x448, the context and depth nets frozen; 5 train steps, each
+   launching K1, K7, K2, K5 and the depth projection's backward once and the
+   hole fill never, with a finite loss, every Adamax group moved and the
+   frozen nets' parameters and MegaDepth's BN buffers unchanged bit for bit;
+   one eval step (K1, K7, K2, K3 once each); one train step at B=1 128x128
+   held to the same step on the CPU (the loss, each grouped gradient leaf);
+   the step's time (median of 20 after 5 warm-up) and peak memory;
 5b. eval_bf16: DAIN(compute_dtype="bfloat16") on the weights and frames of
    phase 3: one forward launches K1-K3 once and K4 (fused_resblocks) six
    times, one launch per conv of the rectifier's trunk; its frames and
@@ -55,15 +63,18 @@ session comes last (7), since host-bound timings read slower after one:
    37x76, each with the number of its tiles that took the direct gather; K3
    also on a full-height edge band, runs of holes across word boundaries, an
    all-hole field and at (1,3,512,704), each held to equality; the backward kernels
-   against the autograd of the plain forwards; each case's time per call
+   against the autograd of the plain forwards, and the depth projection's
+   backward against its plain version (the reference's, not autodiff) on
+   the depth-weighted case, with and without the depth gradient, and on a
+   flow landing on the last row and column; each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
    its yardstick, the same six convs as bf16 cuDNN calls; and its bound: the
    larger of its bytes (each input read once, each output written once) at
    3.35 TB/s and its operations at 67 TFLOP/s float32 (989 TFLOP/s bf16
    for K4);
-7. profile: where the slow-motion forward's, the train step's and the bf16
-   lane's time goes (each stage alone, the Adamax step, torch.profiler over
-   whole runs: busy share, the largest device kernels), and each kernel
+7. profile: where the slow-motion forward's, the two train steps' and the
+   bf16 lane's time goes (each stage alone, the Adamax step, torch.profiler
+   over whole runs: busy share, the largest device kernels), and each kernel
    case's device time per call;
 8. one JSON line of the kernels, with each kernel's launches in one run of
    each path, then the result line.
@@ -96,7 +107,7 @@ from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.ops import rectify as RB
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
                                    train_step)
-from vfidkr_torch.training.train_state import GROUPS
+from vfidkr_torch.training.train_state import FROZEN, GROUPS
 
 # the flows and hole layouts that reach K7's and K3's branches, shared with
 # the card-only tests
@@ -110,6 +121,8 @@ TRAIN_B = 3                     # the reference's training batch
 TRAIN_STEPS = 5
 CPU_B = 1                       # batch of the GPU-against-CPU train step
 SLOWMO_T = 0.25                 # 4x slow motion: 3 frames a pair
+TRAIN_T = 0.5                   # JAX's trainer: one frame a triplet
+CPU_HW = 128                    # frame of the GPU-against-CPU slow-motion step
 HBM_BYTES_S = 3.35e12           # H100 SXM HBM3
 F32_FLOP_S = 67e12              # H100 SXM float32, CUDA cores
 BF16_FLOP_S = 989e12            # H100 SXM bf16, tensor cores, dense
@@ -148,6 +161,10 @@ KERNELS = {
     "fused_resblocks": (
         "vfidkr_torch/csrc/fused_resblocks.cu",
         "vfidkr_tpu/ops/pallas/rectify_kernel.py:135"),
+    # the C = 3 use of scatter4_bwd_pallas, by _dfp_bwd
+    "depth_flow_project_bwd": (
+        "vfidkr_torch/csrc/flow_project_scatter_bwd.cu",
+        "vfidkr_tpu/ops/pallas/projection_band_kernel.py:227"),
 }
 # launches of each kernel in one run of each path; the others launch none
 PATHS = {
@@ -173,7 +190,17 @@ PATHS = {
                         "flow_project_scatter": MB_PAIRS,
                         "flow_project_finalize": MB_PAIRS,
                         "fused_resblocks": 6 * MB_PAIRS},
+    # the context warp forward only: its flow and filter are detached and
+    # the context nets frozen
+    "slowmo_train_step": {"filter_interpolate_fwd": 1,
+                          "filter_interpolate_ctx": 1,
+                          "flow_project_scatter": 1,
+                          "filter_interpolate_bwd": 1,
+                          "depth_flow_project_bwd": 1},
 }
+# checked, not a column of the kernels line
+SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
+                    "flow_project_scatter": 1, "flow_project_finalize": 1}
 # the case of each kernel that its row of the kernels line reports
 ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "flow_project_scatter": "K2 depth-weighted",
@@ -181,7 +208,8 @@ ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "filter_interpolate_bwd": "K5 C=3 no image grad",
             "flow_project_scatter_bwd": "K6",
             "filter_interpolate_ctx": "K7 C=196",
-            "fused_resblocks": f"K4 {(1, 128, H, W)}"}
+            "fused_resblocks": f"K4 {(1, 128, H, W)}",
+            "depth_flow_project_bwd": "K6 C=3 (depth)"}
 
 
 def phase_device() -> torch.device:
@@ -468,6 +496,8 @@ def phase_kernels(dev: torch.device) -> dict:
          _grad_call(FP.scatter4_plain, [f], acc_cot), err,
          _nbytes(flow, acc_cot[:, :2], flow), proj_px * 8)
 
+    _depth_bwd_cases(case, dev, flow, depth_inv, out_cot)
+
     # the bf16 lane's rectifier trunk: six launches a call; its yardstick is
     # the same six convs as bf16 cuDNN calls on channels-last tensors, the
     # layout the kernel takes.  The wrapper is timed on an NCHW input, as
@@ -487,6 +517,43 @@ def phase_kernels(dev: torch.device) -> dict:
              library=lambda x=x_cl, w6=w6: cudnn_chain(x, w6))
     torch.cuda.synchronize()
     return cases
+
+
+def _depth_bwd_cases(case, dev, flow, depth_inv, cot) -> None:
+    """The depth projection's backward (K6's C = 3 use): the reference's,
+    not autodiff, so held to its plain version, on the weighted sums of K2's
+    depth-weighted case and on a flow landing on the last row and column;
+    with the depth gradient and without (gdepth NULL, ``out`` unread).
+    Registers each as a ``case`` of phase_kernels."""
+    border = torch.zeros(N, 2, H, W, device=dev)
+    border[:, 1] = 2.25
+    border[:, 1, H - 1] = 0.0
+    border[:, 0, :, W - 1] = 0.0
+    border[1, 0, 3, W - 2] = 1.0
+    for key, fl, label in (("K6 C=3 (depth)", flow, "make_flow"),
+                           ("K6 C=3 (depth) border", border, "border")):
+        acc = FP.scatter4_plain(fl, depth_inv)
+        args = (fl, depth_inv, cot, acc[:, 2].contiguous(),
+                FP._count_average(acc))
+        px = _landings(fl, False)
+        for need_depth in ((True, False) if fl is flow else (True,)):
+            got = FP.depth_flow_project_bwd(*args, need_depth=need_depth)
+            want = FP.depth_flow_project_bwd_plain(*args,
+                                                   need_depth=need_depth)
+            tag = "" if need_depth else " no depth grad"
+            err = max(_compare_grad(
+                f"depth_flow_project_bwd{tag} ({label}) grad->{name}", a, b)
+                for name, a, b in zip(("flow", "depth"), got, want)
+                if b is not None)
+            # reads flow, depth, g, cnt (and out); writes gflow (and gdepth)
+            case(key + tag, "depth_flow_project_bwd",
+                 lambda a=args, nd=need_depth: FP.depth_flow_project_bwd(
+                     *a, need_depth=nd),
+                 lambda a=args, nd=need_depth:
+                 FP.depth_flow_project_bwd_plain(*a, need_depth=nd), err,
+                 _nbytes(*args[:4], fl, *((args[4], depth_inv) if need_depth
+                                          else ())),
+                 px * (42 if need_depth else 22))
 
 
 def _trunk_inputs(g: torch.Generator, shape):
@@ -573,10 +640,11 @@ def _compare_grad(name, got, want) -> float:
     return err
 
 
-def _check_launches(path, launches) -> None:
-    """Each kernel launched exactly as often as ``PATHS[path]`` says."""
+def _check_launches(path, launches, want_counts=None) -> None:
+    """Each kernel launched exactly as often as ``PATHS[path]`` (or
+    ``want_counts``) says."""
     for name in KERNELS:
-        want = PATHS[path].get(name, 0)
+        want = (want_counts or PATHS[path]).get(name, 0)
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"one {path}, expected {want}")
@@ -593,9 +661,11 @@ def make_model() -> torch.nn.Module:
     return model
 
 
-def make_slowmo_model() -> torch.nn.Module:
-    """DAINSlowMotion(0.25) at full width from seed 0, tamed as DAIN."""
-    model = DAINSlowMotion(SLOWMO_T, generator=torch.Generator().manual_seed(0))
+def make_slowmo_model(timestep: float = SLOWMO_T) -> torch.nn.Module:
+    """DAINSlowMotion(timestep) at full width from seed 0, tamed as DAIN
+    (the weights do not depend on the timestep)."""
+    model = DAINSlowMotion(timestep,
+                           generator=torch.Generator().manual_seed(0))
     tame(model)
     with torch.no_grad():
         model.flownets.dc_conv7.bias.add_(torch.tensor([0.53, -0.31]))
@@ -907,25 +977,24 @@ def phase_slowmo_profile(dev, forward_ms) -> None:
     print(f"[profile] slowmo profile took {time.perf_counter() - t0:.1f} s")
 
 
-def make_triplets(g: torch.Generator, b: int):
+def make_triplets(g: torch.Generator, b: int, h: int = H, w: int = W):
     """``b`` training triplets: a smooth random scene per sample, the
     middle frame its centre crop (the target), the first and last frames
     the crops moved by -(5, -3) and +(5, -3) px; all on the 8-bit grid."""
-    scene = F.interpolate(torch.rand(b, 3, H // 16 + 1, W // 16 + 1,
+    scene = F.interpolate(torch.rand(b, 3, h // 16 + 1, w // 16 + 1,
                                      generator=g),
-                          size=(H + 12, W + 12), mode="bicubic",
+                          size=(h + 12, w + 12), mode="bicubic",
                           align_corners=False).clamp(0, 1)
-    crop = lambda dx, dy: scene[:, :, 6 + dy:6 + dy + H, 6 + dx:6 + dx + W]
+    crop = lambda dx, dy: scene[:, :, 6 + dy:6 + dy + h, 6 + dx:6 + dx + w]
     q = lambda x: (torch.round(x * 255) / 255).contiguous()
     return {"x0": q(crop(-5, 3)), "x1": q(crop(5, -3)), "y": q(crop(0, 0))}
 
 
-def phase_train(dev: torch.device):
+def _train_steps(tag, path, model, opt, batch) -> dict:
+    """TRAIN_STEPS train steps, each checked: the launches of ``path``, a
+    finite loss, every parameter of each Adamax group whose gradient is over
+    1e-6 moved.  Returns the last step's launches."""
     config = TrainConfig()
-    model = make_model().to(dev)
-    opt = make_optimizer(model, config)
-    batch = {k: v.to(dev) for k, v in
-             make_triplets(torch.Generator().manual_seed(2), TRAIN_B).items()}
     for step in range(TRAIN_STEPS):
         before = {name: [p.detach().clone() for p in grp["params"]]
                   for name, grp in zip(GROUPS, opt.param_groups)}
@@ -933,7 +1002,7 @@ def phase_train(dev: torch.device):
         m = train_step(model, opt, batch, config)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        _check_launches("train_step", launches)
+        _check_launches(path, launches)
         total = float(m["total"])
         if not math.isfinite(total):
             raise AssertionError(f"train step {step}: loss {total}")
@@ -947,36 +1016,48 @@ def phase_train(dev: torch.device):
                                      f"{len(live)} {name} parameters with a "
                                      f"gradient moved")
             moved[name] = f"{n_moved}/{len(grp['params'])}"
-        print(f"[train] step {step}: loss {total:.6f}, psnr "
+        print(f"[{tag}] step {step}: loss {total:.6f}, psnr "
               f"{float(m['psnr']):.3f} dB, launches {launches}, parameters "
               f"moved per group {moved}")
+    return launches
 
+
+def _eval_step(tag, model, batch, want_counts) -> None:
     kernels.reset_launches()
-    m = eval_step(model, batch, config)
+    m = eval_step(model, batch, TrainConfig())
     torch.cuda.synchronize()
-    eval_launches = dict(kernels.LAUNCHES)
-    _check_launches("eval_forward", eval_launches)
+    launches = dict(kernels.LAUNCHES)
+    _check_launches(tag, launches, want_counts)
     if not math.isfinite(float(m["total"])):
         raise AssertionError(f"eval step: loss {float(m['total'])}")
-    print(f"[train] eval step: loss {float(m['total']):.6f}, psnr "
-          f"{float(m['psnr']):.3f} dB, launches {eval_launches}")
+    print(f"[{tag}] eval step: loss {float(m['total']):.6f}, psnr "
+          f"{float(m['psnr']):.3f} dB, launches {launches}")
+
+
+def phase_train(dev: torch.device):
+    model = make_model().to(dev)
+    opt = make_optimizer(model, TrainConfig())
+    batch = {k: v.to(dev) for k, v in
+             make_triplets(torch.Generator().manual_seed(2), TRAIN_B).items()}
+    launches = _train_steps("train", "train_step", model, opt, batch)
+    _eval_step("train", model, batch, PATHS["eval_forward"])
     return model, opt, batch, launches
 
 
-def phase_train_vs_cpu(dev: torch.device) -> None:
+def _train_vs_cpu(tag, dev, cpu, batch) -> None:
     """One train step from the same weights and batch on both devices; the
-    gradients per leaf within rtol 5e-3, atol 5e-3 x the leaf's largest
-    magnitude (tests/test_full_graph_backward.py's tolerance)."""
+    loss to rtol 1e-4, the gradients per grouped leaf within rtol 5e-3,
+    atol 5e-3 x the leaf's largest magnitude
+    (tests/test_full_graph_backward.py's tolerance)."""
     config = TrainConfig()
-    cpu = make_model()
     gpu = copy.deepcopy(cpu).to(dev)
-    batch = make_triplets(torch.Generator().manual_seed(3), CPU_B)
     got = train_step(gpu, make_optimizer(gpu, config),
                      {k: v.to(dev) for k, v in batch.items()}, config)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
-    print(f"[train] GPU vs CPU at B={CPU_B} {H}x{W}: the CPU step took "
+    b, _, h, w = batch["x0"].shape
+    print(f"[{tag}] GPU vs CPU at B={b} {h}x{w}: the CPU step took "
           f"{time.perf_counter() - t0:.1f} s; loss {float(got['total']):.7f} "
           f"(GPU) vs {float(want['total']):.7f} (CPU)")
     if not math.isclose(float(got["total"]), float(want["total"]),
@@ -995,24 +1076,63 @@ def phase_train_vs_cpu(dev: torch.device) -> None:
             n += 1
             if not torch.allclose(a, b, rtol=5e-3, atol=5e-3 * scale):
                 failed.append(name)
-        print(f"[train] GPU vs CPU grads, group {group}: {n} leaves, worst "
+        print(f"[{tag}] GPU vs CPU grads, group {group}: {n} leaves, worst "
               f"max|diff| / max|grad| {worst[0]:.3e} ({worst[1]}; rtol "
               f"5e-3, atol 5e-3 x max|grad|)")
     if failed:
         raise AssertionError(f"GPU and CPU gradients disagree: {failed}")
 
 
-def phase_train_times(model, opt, batch) -> float:
+def phase_train_vs_cpu(dev: torch.device) -> None:
+    _train_vs_cpu("train", dev, make_model(),
+                  make_triplets(torch.Generator().manual_seed(3), CPU_B))
+
+
+def phase_slowmo_train(dev: torch.device):
+    """DAINSlowMotion(0.5).train() at B=3: TRAIN_STEPS checked steps, the
+    frozen nets unchanged, one eval step."""
+    model = make_slowmo_model(TRAIN_T).to(dev)
+    opt = make_optimizer(model, TrainConfig())
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if k.startswith(FROZEN)}
+    batch = {k: v.to(dev) for k, v in
+             make_triplets(torch.Generator().manual_seed(2), TRAIN_B).items()}
+    launches = _train_steps("slowmo_train", "slowmo_train_step", model, opt,
+                            batch)
+    changed = [k for k, v in model.state_dict().items()
+               if k in frozen and not torch.equal(v, frozen[k])]
+    n_bn = sum(k.endswith(("running_mean", "running_var")) for k in frozen)
+    if changed or not n_bn:
+        raise AssertionError(f"frozen tensors changed: {changed}")
+    print(f"[slowmo_train] after {TRAIN_STEPS} steps the {len(frozen)} "
+          f"tensors of {', '.join(FROZEN)} ({n_bn} of them MegaDepth's BN "
+          f"statistics) are unchanged bit for bit; MegaDepth in eval mode: "
+          f"{not model.depthNet.training}")
+    if model.depthNet.training:
+        raise AssertionError("MegaDepth left eval mode")
+    _eval_step("slowmo_train", model, batch, SLOWMO_EVAL_STEP)
+    return model, opt, batch, launches
+
+
+def phase_slowmo_train_vs_cpu(dev: torch.device) -> None:
+    _train_vs_cpu("slowmo_train", dev, make_slowmo_model(TRAIN_T),
+                  make_triplets(torch.Generator().manual_seed(3), CPU_B,
+                                CPU_HW, CPU_HW))
+
+
+def phase_train_times(model, opt, batch, name="DAIN") -> float:
     config = TrainConfig()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
     t = cuda_times_ms(lambda: train_step(model, opt, batch, config),
                       warmup=5, iters=20)
     ms = statistics.median(t)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[times] DAIN train step B={TRAIN_B} {H}x{W} float32 TF32 off: "
+    print(f"[times] {name} train step B={TRAIN_B} {H}x{W} float32 TF32 off: "
           f"{ms:.3f} ms/step (median of {len(t)} after 5 warm-up; p80 "
           f"{t[int(0.8 * len(t)) - 1]:.3f} ms, min {t[0]:.3f}, max "
-          f"{t[-1]:.3f}); peak memory {peak:.3f} GiB")
+          f"{t[-1]:.3f}); peak memory {peak:.3f} GiB, of which {held:.3f} "
+          f"GiB held before the steps (the models and optimizers so far)")
     return ms
 
 
@@ -1083,6 +1203,81 @@ def phase_train_profile(model, opt, batch, step_ms) -> None:
     _profile_whole("train step",
                    lambda: train_step(model, opt, batch, config), 3,
                    tuple(PATHS["train_step"]))
+
+
+def phase_slowmo_train_profile(model, opt, batch, step_ms) -> None:
+    """Where the slow-motion train step's time goes: the frozen nets'
+    forwards (they record no graph), each trained stage's forward and
+    backward on its own inputs, the Adamax step, and whole steps under
+    torch.profiler."""
+    x0, x1 = batch["x0"], batch["x1"]
+    b = x0.shape[0]
+    frames = torch.cat([x0, x1], 0)
+    model.train()
+
+    def heads(pair):
+        trunk = model.initScaleNets_filter(pair)
+        return torch.cat([model.initScaleNets_filter1(trunk),
+                          model.initScaleNets_filter2(trunk)], 1)
+
+    def pwc(a, c):
+        return torch.cat(model.flownets.bidirectional(a, c), 0)
+
+    def project(raw):
+        flows = upsample_bilinear(raw * (DIV_FLOW * TRAIN_T), 4)
+        return FP.depth_flow_project(flows, depth_inv, hole_fill=False)
+
+    def warps(offs, filt):
+        ctx_w = FI.filter_interpolate(ctx, offs.detach(), filt.detach())
+        refs = FI.filter_interpolate(frames, offs, filt)
+        out = refs[:b] * (1.0 - TRAIN_T) + refs[b:] * TRAIN_T
+        return torch.cat([out, refs[:b], refs[b:], ctx_w[:b], ctx_w[b:]], 1)
+
+    with torch.no_grad():      # each stage's inputs, from one forward
+        log_depth = model.depthNet(frames)
+        depth_inv = depth_inv_from_log_depth(log_depth)
+        ctx = torch.cat([model.ctxNet(frames), log_depth], 1)
+        f01 = heads(torch.cat([x0, x1], 1))
+        filt = torch.cat([f01[:, :16], f01[:, 16:]], 0)
+        raw = pwc(x0, x1)
+        offs = project(raw)
+        w = warps(offs, filt)
+        rect_in = torch.cat([w[:, :9], offs[:b], offs[b:], f01,
+                             w[:, 9:]], 1)
+    frozen = [("MegaDepth (frozen)", lambda: model.depthNet(frames)),
+              ("S2DF (frozen)", lambda: model.ctxNet(frames))]
+    stages = [
+        ("MonoNet5 + 2 heads", heads, [torch.cat([x0, x1], 1)], False),
+        ("PWC-Net bidirectional", pwc, [x0, x1], False),
+        ("upsample x4 + depth projection (K2, depth backward)", project,
+         [raw], True),
+        ("ctx warp (K7) + frame warp (K1, K5) + blend", warps, [offs, filt],
+         True),
+        ("rectifier 437 -> 3", model.rectifyNet, [rect_in], True),
+    ]
+    sum_f = sum_b = 0.0
+    for name, fwd in frozen:
+        with torch.no_grad():
+            t_f = statistics.median(cuda_times_ms(fwd, 3, 15))
+        sum_f += t_f
+        print(f"[profile] slowmo train stage {name}: forward {t_f:.3f} ms")
+    for name, fwd, ins, need_grad in stages:
+        t_f, t_b = _stage_ms(model, fwd, ins, need_grad)
+        sum_f, sum_b = sum_f + t_f, sum_b + t_b
+        print(f"[profile] slowmo train stage {name}: forward {t_f:.3f} ms, "
+              f"backward {t_b:.3f} ms")
+    config = TrainConfig()
+    train_step(model, opt, batch, config)
+    t_opt = statistics.median(cuda_times_ms(opt.step, 3, 15))
+    n_tensors = sum(len(g["params"]) for g in opt.param_groups)
+    print(f"[profile] slowmo train stage Adamax step ({n_tensors} tensors): "
+          f"{t_opt:.3f} ms")
+    print(f"[profile] slowmo train stage sums: forward {sum_f:.3f} ms, "
+          f"backward {sum_b:.3f} ms, with Adamax {sum_f + sum_b + t_opt:.3f} "
+          f"ms; the whole step {step_ms:.3f} ms")
+    _profile_whole("slow-motion train step",
+                   lambda: train_step(model, opt, batch, config), 3,
+                   tuple(PATHS["slowmo_train_step"]))
 
 
 def phase_call_times(cases) -> dict:
@@ -1385,6 +1580,10 @@ def main() -> None:
     train_model, opt, batch, train_launches = phase_train(dev)
     phase_train_vs_cpu(dev)
     step_ms = phase_train_times(train_model, opt, batch)
+    smt_model, smt_opt, smt_batch, smt_launches = phase_slowmo_train(dev)
+    phase_slowmo_train_vs_cpu(dev)
+    smt_ms = phase_train_times(smt_model, smt_opt, smt_batch,
+                               f"DAINSlowMotion({TRAIN_T})")
     print(f"[time] the float32 paths checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
     eval_bf16, i0, i2, eval_bf16_launches = phase_eval_bf16(dev)
@@ -1397,6 +1596,7 @@ def main() -> None:
     phase_bf16_stages(dev, eval_bf16, slowmo_bf16, i0, i2)
     phase_slowmo_profile(dev, slowmo_ms)
     phase_train_profile(train_model, opt, batch, step_ms)
+    phase_slowmo_train_profile(smt_model, smt_opt, smt_batch, smt_ms)
     phase_bf16_profile(eval_bf16, slowmo_bf16, i0, i2)
     phase_device_times(cases, times)
     done = {key: {"kernel": c["kernel"], "max_abs_err": c["err"], **times[key],
@@ -1407,7 +1607,8 @@ def main() -> None:
                 "slowmo_forward": slowmo_launches,
                 "eval_forward_bf16": eval_bf16_launches,
                 "slowmo_forward_bf16": slowmo_bf16_launches,
-                "middlebury_bf16": mb_launches}
+                "middlebury_bf16": mb_launches,
+                "slowmo_train_step": smt_launches}
     print(f"[launches] {per_path}")
     rows = []
     for name, (src, rep) in KERNELS.items():

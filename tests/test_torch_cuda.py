@@ -205,7 +205,8 @@ def test_dain_cuda_matches_cpu(dev):
                                     "filter_interpolate_bwd": 0,
                                     "flow_project_scatter_bwd": 0,
                                     "filter_interpolate_ctx": 0,
-                                    "fused_resblocks": 0}
+                                    "fused_resblocks": 0,
+                                    "depth_flow_project_bwd": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -311,7 +312,8 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "filter_interpolate_bwd": 1,
                                 "flow_project_scatter_bwd": 1,
                                 "filter_interpolate_ctx": 0,
-                                "fused_resblocks": 0}
+                                "fused_resblocks": 0,
+                                "depth_flow_project_bwd": 0}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -346,13 +348,147 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "filter_interpolate_bwd": 0,
                                     "flow_project_scatter_bwd": 0,
                                     "filter_interpolate_ctx": 3,
-                                    "fused_resblocks": 0}
+                                    "fused_resblocks": 0,
+                                    "depth_flow_project_bwd": 0}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
     for frames_a, frames_b in zip(got["outputs"], want["outputs"]):
         for a, b in zip(frames_a, frames_b):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-4)
+
+
+def _depth_bwd_inputs(g, case, n=2, h=40, w=72):
+    """flow, depth, the cotangent g and the forward's cnt and unfilled out:
+    a smooth flow with landings out of the frame, or landings on and beyond
+    the last row and column (a cell read twice)."""
+    import torch.nn.functional as F
+    from vfidkr_torch.ops import flow_projection as FP
+    if case == "smooth":
+        coarse = (torch.rand(n, 2, 3, 5, generator=g) * 2 - 1) * 12
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=True)
+        flow[0, 0, 4:8, 2:6] = -30.0                      # off the frame
+    else:
+        flow = torch.zeros(n, 2, h, w)
+        flow[:, 1] = 2.25
+        flow[:, 1, h - 1] = 0.0
+        flow[:, 0, :, w - 1] = 0.0
+        flow[1, 0, 3, w - 2] = 1.0
+    depth = 1e-6 + torch.exp(-(torch.rand(n, h, w, generator=g) * 4 - 1))
+    cot = torch.randn(n, 2, h, w, generator=g)
+    acc = FP.scatter4_plain(flow, depth)
+    return flow, depth, cot, acc[:, 2].contiguous(), FP._count_average(acc)
+
+
+@pytest.mark.parametrize("need_depth", [True, False])
+@pytest.mark.parametrize("case", ["smooth", "border"])
+def test_depth_flow_project_bwd_kernel(dev, case, need_depth):
+    """The depth projection's backward kernel against its plain version,
+    with the depth gradient and with it NULL; and through the autograd
+    Function of ``depth_flow_project``, one launch a backward."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import flow_projection as FP
+    g = torch.Generator().manual_seed(8)
+    ins = [t.to(dev) for t in _depth_bwd_inputs(g, case)]
+    before = kernels.LAUNCHES["depth_flow_project_bwd"]
+    gflow, gdepth = FP.depth_flow_project_bwd(*ins, need_depth=need_depth)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["depth_flow_project_bwd"] == before + 1
+    want_flow, want_depth = FP.depth_flow_project_bwd_plain(
+        *ins, need_depth=need_depth)
+    _grads_close("gflow", gflow, want_flow)
+    if need_depth:
+        _grads_close("gdepth", gdepth, want_depth)
+    else:
+        assert gdepth is None and want_depth is None
+
+    flow, depth, cot = ins[:3]
+    f = flow.clone().requires_grad_()
+    d = depth.clone().requires_grad_(need_depth)
+    FP.depth_flow_project(f, d, hole_fill=case == "smooth").backward(cot)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["depth_flow_project_bwd"] == before + 2
+    _grads_close("gflow via autograd", f.grad, want_flow)
+    if need_depth:
+        _grads_close("gdepth via autograd", d.grad, want_depth)
+
+
+def test_depth_flow_project_bwd_rejects_bad_inputs(dev):
+    from vfidkr_torch.ops import flow_projection as FP
+    g = torch.Generator().manual_seed(9)
+    flow, depth, cot, cnt, out = (t.to(dev) for t in
+                                  _depth_bwd_inputs(g, "smooth", 1, 8, 8))
+    with pytest.raises(TypeError):
+        FP.depth_flow_project_bwd(flow.double(), depth, cot, cnt, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        FP.depth_flow_project_bwd(flow, depth, cot.transpose(2, 3), cnt, out)
+    with pytest.raises(ValueError, match="cnt must be"):
+        FP.depth_flow_project_bwd(flow, depth, cot, cnt[..., :4].contiguous(),
+                                  out)
+
+
+def test_dain_slowmotion_train_step_cuda_matches_cpu(dev):
+    """One DAINSlowMotion(0.5) train step: K1, K7, K2, K5 and the depth
+    projection's backward once each, no hole fill; the context and depth
+    nets frozen; the loss and each grouped gradient leaf held to the same
+    step on the CPU.  The weights are tamed as chip_smoke.py tames them
+    (biases jittered, a (5.3, -3.1) px flow bias) and the frames are a
+    smooth scene moved by (5, -3) px: on random-noise frames a 1e-5 change
+    of the input moves some PWC-Net leaves past this tolerance on the CPU
+    alone (landings that cross a cell boundary)."""
+    import copy
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import DAINSlowMotion
+    from vfidkr_torch.training import TrainConfig, make_optimizer, train_step
+    g = torch.Generator().manual_seed(10)
+    model = DAINSlowMotion(0.5, generator=g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.mul_(0.5)
+            if name.endswith("bias"):
+                p.add_((torch.rand(p.shape, generator=g) - 0.5) * 0.02)
+        model.flownets.dc_conv7.bias.add_(torch.tensor([0.53, -0.31]))
+    h, w = 64, 128
+    scene = F.interpolate(torch.rand(1, 3, h // 16 + 1, w // 16 + 1,
+                                     generator=g),
+                          size=(h + 12, w + 12), mode="bicubic",
+                          align_corners=False).clamp(0, 1)
+    crop = lambda dx, dy: torch.round(
+        scene[:, :, 6 + dy:6 + dy + h, 6 + dx:6 + dx + w] * 255) / 255
+    batch = {"x0": crop(-5, 3), "x1": crop(5, -3), "y": crop(0, 0)}
+    cpu = copy.deepcopy(model)
+    gpu = model.to(dev)
+    frozen = {k: v.clone() for k, v in gpu.state_dict().items()
+              if k.startswith(("ctxNet", "depthNet"))}
+    config = TrainConfig()
+    kernels.reset_launches()
+    got = train_step(gpu, make_optimizer(gpu, config),
+                     {k: v.to(dev) for k, v in batch.items()}, config)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"filter_interpolate_fwd": 1,
+                                "flow_project_scatter": 1,
+                                "flow_project_finalize": 0,
+                                "filter_interpolate_bwd": 1,
+                                "flow_project_scatter_bwd": 0,
+                                "filter_interpolate_ctx": 1,
+                                "fused_resblocks": 0,
+                                "depth_flow_project_bwd": 1}
+    for k, v in gpu.state_dict().items():
+        if k in frozen:
+            assert torch.equal(v, frozen[k]), k
+    want = train_step(cpu, make_optimizer(cpu, config), batch, config)
+    torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
+                               atol=0)
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        if b.grad is None:
+            assert a.grad is None and name.startswith(("ctxNet", "depthNet"))
+            continue
+        scale = max(a.grad.abs().max().item(), b.grad.abs().max().item(),
+                    1e-12)
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=5e-3,
+                                   atol=5e-3 * scale, msg=name)
 
 
 def _trunk_inputs(g, n, h, w):
@@ -458,7 +594,8 @@ def test_dain_bf16_launches_fused_resblocks(dev):
                                 "filter_interpolate_bwd": 0,
                                 "flow_project_scatter_bwd": 0,
                                 "filter_interpolate_ctx": 0,
-                                "fused_resblocks": 6}
+                                "fused_resblocks": 6,
+                                "depth_flow_project_bwd": 0}
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()

@@ -112,10 +112,15 @@ def test_slowmo_loads_every_weight_and_launches_no_kernel(slowmo_pair):
 
 
 def test_slowmo_train_mode_raises():
+    """A model starts in eval mode.  ``train()`` raises in the bf16 lane,
+    which is evaluation only; in float32 it trains, with MegaDepth kept on
+    its running statistics (tests/test_torch_slowmo_trainer.py)."""
     model = DAINSlowMotion()
     assert not model.training and not model.depthNet.training
     with pytest.raises(NotImplementedError, match="evaluation only"):
-        model.train()
+        DAINSlowMotion(compute_dtype="bfloat16").train()
+    model.train()
+    assert model.training and not model.depthNet.training
     model.eval()
 
 

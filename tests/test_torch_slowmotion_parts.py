@@ -193,13 +193,18 @@ def test_depth_flow_project_matches_jax(rng, hole_fill):
 
 @pytest.mark.parametrize("which", ["flow", "depth_inv"])
 def test_depth_flow_project_raises_where_a_gradient_is_needed(rng, which):
-    """The reference's depth backward is not the autodiff of the forward,
-    so the port refuses to record one."""
+    """The reference's depth backward is not the autodiff of the forward:
+    the bare weighted scatter refuses to record one and raises, and
+    ``depth_flow_project`` records the reference's (held to JAX's in
+    tests/test_torch_depth_grad.py)."""
     flow, depth_inv = _depth_case(rng)
     flow, depth_inv = nchw(flow), torch.from_numpy(depth_inv)
     {"flow": flow, "depth_inv": depth_inv}[which].requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
-        depth_flow_project(flow, depth_inv, hole_fill=True)
+        FP.scatter4(flow, depth_inv)
+    for hole_fill in (False, True):
+        out = depth_flow_project(flow, depth_inv, hole_fill=hole_fill)
+        assert out.grad_fn is not None and out.shape == flow.shape
     with torch.no_grad():
         assert depth_flow_project(flow, depth_inv).shape == flow.shape
 

@@ -1,5 +1,5 @@
-"""DAIN trainer of the PyTorch port (counterpart of ``apps/train.py``;
-reference ``train.py``).
+"""DAIN and DAIN_slowmotion trainer of the PyTorch port (counterpart of
+``apps/train.py``; reference ``train.py``).
 
 Vimeo-90K triplets with balanced sampling and the reference's augmentations,
 Adamax in three learning-rate groups, the Charbonnier pixel loss (alpha-
@@ -7,11 +7,15 @@ weighted over the raw and rectified outputs), validation with PSNR after each
 epoch, ReduceLROnPlateau on the validation loss, epoch checkpoints with the
 previous epoch deleted, the best-on-validation checkpoint, and one row per
 epoch in ``log.txt`` (epoch, lr scale, train loss, val loss, val PSNR).
+``--net-name DAIN_slowmotion`` trains ``DAINSlowMotion(0.5)``, one frame a
+triplet, as JAX's trainer does at its default time step; its context and
+depth nets stay frozen.
 
 Usage:
   python -m vfidkr_torch.apps.train \\
       --dataset-path /data/vimeo_triplet --save-path runs/x \\
-      [--batch-size 3] [--num-epochs 50] [--lr 2e-3] [--device cuda] ...
+      [--net-name DAIN|DAIN_slowmotion] [--batch-size 3] [--num-epochs 50] \\
+      [--lr 2e-3] [--device cuda] ...
 
 It trains on the card (``--device`` defaults to ``cuda``) unless asked for
 the CPU (``--device cpu``); nothing falls back.  Decoding the PNG frames
@@ -35,7 +39,8 @@ def parse_args(argv=None):
     add_device_flag(ap)
     ap.add_argument("--dataset-path", required=True)
     ap.add_argument("--save-path", required=True)
-    ap.add_argument("--net-name", default="DAIN", choices=["DAIN"])
+    ap.add_argument("--net-name", default="DAIN",
+                    choices=["DAIN", "DAIN_slowmotion"])
     ap.add_argument("--batch-size", type=int, default=3)
     ap.add_argument("--num-epochs", type=int, default=50)
     ap.add_argument("--lr", type=float, default=2e-3)
@@ -66,7 +71,7 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     from vfidkr_torch.data.vimeo90k import (train_batches, val_batches,
                                             vimeo90k_splits)
-    from vfidkr_torch.models import DAIN
+    from vfidkr_torch.models import DAIN, DAINSlowMotion
     from vfidkr_torch.training import (CheckpointManager, TrainConfig,
                                        eval_step, full_state, load_weights,
                                        make_optimizer, plateau_init,
@@ -100,7 +105,10 @@ def main(argv=None) -> None:
           f"{len(train_paths)} train samples and {len(test_paths)} test "
           f"samples")
 
-    model = DAIN(generator=torch.Generator().manual_seed(args.seed))
+    generator = torch.Generator().manual_seed(args.seed)
+    model = (DAINSlowMotion(0.5, generator=generator)
+             if args.net_name == "DAIN_slowmotion" else
+             DAIN(generator=generator))
     if args.pretrained:
         loaded, _ = load_weights(model, args.pretrained)
         print(f"fine-tuning: loaded {len(loaded)} tensors from "

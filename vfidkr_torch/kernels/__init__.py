@@ -15,7 +15,7 @@ from vfidkr_torch.kernels import build
 KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
            "flow_project_finalize", "filter_interpolate_bwd",
            "flow_project_scatter_bwd", "filter_interpolate_ctx",
-           "fused_resblocks")
+           "fused_resblocks", "depth_flow_project_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

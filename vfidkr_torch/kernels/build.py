@@ -44,6 +44,9 @@ SIGNATURES = {
     "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _P],
     # flow, g, gflow, n, h, w, stream
     "vfidkr_flow_project_scatter_bwd": [_P, _P, _P, _I, _I, _I, _P],
+    # flow, depth, g, cnt, out, gflow, gdepth (or NULL), n, h, w, stream
+    "vfidkr_depth_flow_project_bwd": [_P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _P],
     # acc, out, n, h, w, stream
     "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _P],
     # x, w (one conv's packed taps), res (or NULL), out (NHWC), n, h, w, stream

@@ -26,8 +26,9 @@ heads, the rectifier (its residual trunk through the kernel
 ``fused_resblocks``) and, in DAIN_slowmotion, S2DF run in bf16; their
 outputs are cast to float32 (the rectifier's before ``+ cur_output``).
 PWC-Net, MegaDepth and the projection and warp ops stay float32.  The lane
-is evaluation only: a bf16 model is built in eval mode and ``train()``
-raises.  ``"float32"``, the default, is the reference's arithmetic.
+is evaluation only (JAX's trainer passes no ``compute_dtype``): a bf16 model
+is built in eval mode and ``train()`` raises.  ``"float32"``, the default,
+is the reference's arithmetic.
 """
 
 from __future__ import annotations
@@ -112,7 +113,7 @@ class DAIN(nn.Module):
 
 class DAINSlowMotion(nn.Module):
     """DAIN_slowmotion: ``1 / timestep - 1`` frames between i0 and i2, at
-    t = timestep, 2 timestep, ...; evaluation only.
+    t = timestep, 2 timestep, ...
 
     Counterpart of ``DAINSlowMotion.__call__`` in
     ``vfidkr_tpu/models/dain.py:179-357`` (reference
@@ -120,20 +121,24 @@ class DAINSlowMotion(nn.Module):
 
     1. MegaDepth on ``cat([i0, i2])``: log-depth, then
        ``depth_inv = 1e-6 + exp(-log_depth)``;
-    2. the contexts ``cat([S2DF(i), log_depth])``, 196 channels;
+    2. the contexts ``cat([S2DF(i), log_depth])``, 196 channels, the
+       log-depth detached;
     3. MonoNet5 and two branch heads: the 4x4 kernels; PWC-Net flows in
        both directions;
     4. per step t: the flows scaled by ``20 t`` (forward) and ``20 (1 - t)``
        (backward; Python floats) and upsampled x4; the depth-weighted
-       projection with the hole fill; the warp of the context pair (flow and
-       kernels detached) and of the frame pair; ``out = ref0 (1-t) +
-       ref2 t``; the 437-channel rectifier, added to ``out``.
+       projection, with the hole fill in eval and without it in training;
+       the warp of the context pair (flow and kernels detached) and of the
+       frame pair; ``out = ref0 (1-t) + ref2 t``; the 437-channel rectifier,
+       added to ``out``.
 
-    Both directions are batched, so each step launches the projection's two
-    kernels, the context warp and the frame warp once each.  The depth
-    projection has no gradient yet (``vfidkr_torch.ops.flow_projection``),
-    so the forward runs under ``torch.no_grad`` or ``torch.inference_mode``,
-    and ``train()`` raises: training comes with its own slice.
+    Both directions are batched, so each step launches the projection's
+    kernels, the context warp and the frame warp once each.  ``train()`` is
+    JAX's ``train=True`` in float32: MegaDepth stays in eval mode whatever
+    the mode (its BN on running statistics, JAX's ``train_bn=False``), and
+    the projection's backward is the reference's
+    (``vfidkr_torch.ops.flow_projection``).  The trainer freezes ``ctxNet``
+    and ``depthNet`` (``vfidkr_torch.training.train_state.FROZEN``).
     """
 
     def __init__(self, timestep: float = 0.5,
@@ -156,9 +161,11 @@ class DAINSlowMotion(nn.Module):
         self.train(False)
 
     def train(self, mode: bool = True) -> "DAINSlowMotion":
-        return _eval_only(
-            self, mode, "the depth projection's backward and MegaDepth's "
-            "batch statistics are not ported yet")
+        if self.compute_dtype != torch.float32:
+            return _eval_only(self, mode, _BF16_WHY)
+        super().train(mode)
+        self.depthNet.train(False)
+        return self
 
     def forward(self, i0: torch.Tensor, i2: torch.Tensor) -> dict:
         """i0, i2: (B,3,H,W) frames, H and W multiples of 64.
@@ -183,7 +190,8 @@ class DAINSlowMotion(nn.Module):
         for t, t_rev in zip(steps, steps[::-1]):
             flows = upsample_bilinear(torch.cat(
                 [raw_fwd * (DIV_FLOW * t), raw_bwd * (DIV_FLOW * t_rev)], 0), 4)
-            offs = depth_flow_project(flows, depth_inv, hole_fill=True)
+            offs = depth_flow_project(flows, depth_inv,
+                                      hole_fill=not self.training)
             off0, off1 = offs[:b], offs[b:]
             ctx_w = filter_interpolate(ctx, offs.detach(), filt.detach())
             refs = filter_interpolate(frames, offs, filt)

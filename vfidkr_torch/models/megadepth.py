@@ -1,4 +1,4 @@
-"""MegaDepth single-image log-depth hourglass, NCHW, evaluation only.
+"""MegaDepth single-image log-depth hourglass, NCHW.
 
 Counterpart of ``MegaDepthHourglass._run`` / ``_run_inception`` in
 ``vfidkr_tpu/models/megadepth.py:128-278`` (reference
@@ -12,8 +12,10 @@ children are, so the ``state_dict`` keys are the reference checkpoint's
 names map onto them one to one.
 
 BN is ``BatchNorm2d(ch, eps=1e-5, affine=...)`` on its running statistics;
-batch statistics (training) are not ported.  Init: flax's ``nn.Conv``
-default (lecun normal, zero bias); BN mean 0, var 1, scale 1, bias 0.
+batch statistics are not ported (JAX's ``train_bn`` is False in all its
+apps), so ``DAINSlowMotion.train()`` keeps this module in eval mode.
+Init: flax's ``nn.Conv`` default (lecun normal, zero bias); BN mean 0,
+var 1, scale 1, bias 0.
 """
 
 from __future__ import annotations

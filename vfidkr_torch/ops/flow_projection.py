@@ -15,7 +15,7 @@ flows back through the scatter; at inference a hole takes the mean of the
 nearest filled cells to its left, right, top and bottom, and no gradient
 reaches the flow (JAX's ``stop_gradient``).
 
-Three CUDA kernels carry it on the card:
+Four CUDA kernels carry it on the card:
 
 * ``scatter4``: the scatter into (N,3,H,W) sums, channel 2 the count or
   the weight sum (``flow_project_scatter``,
@@ -25,7 +25,9 @@ Three CUDA kernels carry it on the card:
 * ``finalize``: the count average and hole fill, inference only
   (``flow_project_finalize``, ``vfidkr_torch/csrc/flow_project_finalize.cu``:
   a block per 32x32 tile, whose holes find their nearest filled cells over
-  filled bitmasks, 32 cells a word).
+  filled bitmasks, 32 cells a word);
+* ``depth_flow_project_bwd`` (in ``flow_project_scatter_bwd.cu``): the
+  backward of the depth-weighted projection.
 
 Each launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors.  The kernel's atomic adds make the summed flow depend on their order
@@ -33,12 +35,14 @@ to the last bits; a count is exact in any order, a weight sum is not.  The
 training count average is plain PyTorch on both devices, as it is XLA in the
 JAX package.
 
-The depth-weighted projection has no gradient in the port yet: the
-reference's backward is not the autodiff of its forward (it uses
-``(f - out)`` where autodiff gives ``(f + out)``,
-``vfidkr_tpu/ops/flow_projection.py:545-581``), so the plain version's
-autograd would be wrong.  ``depth_flow_project`` raises where its inputs
-need a gradient, on either device.
+The depth-weighted projection's gradient is the reference's, not the
+autodiff of its forward: its depth gradient has ``(f - out)`` where autodiff
+gives ``(f + out)`` (``vfidkr_tpu/ops/flow_projection.py:545-581``).  So
+``depth_flow_project`` is one autograd Function over the weighted scatter
+and the average (and the hole fill, which takes no gradient), as JAX's
+``custom_vjp`` covers ``_depth_flow_project_core``; its backward is
+``depth_flow_project_bwd`` on the card and ``depth_flow_project_bwd_plain``
+on the CPU.  The bare weighted ``scatter4`` records no gradient.
 """
 
 from __future__ import annotations
@@ -129,15 +133,16 @@ def scatter4(flow: torch.Tensor,
              weight: torch.Tensor | None = None) -> torch.Tensor:
     """(N,2,H,W) flow -> (N,3,H,W): summed (-fx, -fy) and the hit count;
     with a (N,H,W) ``weight`` ``d``, summed (-fx·d, -fy·d) and the sum of
-    ``d``.  The weighted scatter has no backward: it raises where its
-    inputs need a gradient."""
+    ``d``.  The weighted scatter alone records no gradient, and raises where
+    its inputs need one: the depth projection's gradient is
+    ``depth_flow_project``'s, which covers the scatter and the average."""
     _check_flow(flow)
     _check_weight(weight, flow)
     if weight is not None and torch.is_grad_enabled() and (
             flow.requires_grad or weight.requires_grad):
-        raise RuntimeError("the depth-weighted flow projection has no "
-                           "backward in vfidkr_torch yet (detach its inputs "
-                           "or run under torch.no_grad)")
+        raise RuntimeError("the depth-weighted scatter has no backward of "
+                           "its own: take the gradient through "
+                           "depth_flow_project")
     if flow.device.type == "cpu":
         return scatter4_plain(flow, weight)
     if weight is None:
@@ -224,19 +229,106 @@ def flow_project(flow: torch.Tensor, hole_fill: bool = False) -> torch.Tensor:
     return _count_average(scatter4(flow))
 
 
+def depth_flow_project_bwd_plain(flow: torch.Tensor, depth: torch.Tensor,
+                                 g: torch.Tensor, cnt: torch.Tensor,
+                                 out: torch.Tensor, need_depth: bool = True):
+    """Plain PyTorch version of the depth projection's backward (JAX's
+    ``_dfp_bwd``): the field ``[g_x/cnt, g_y/cnt, (g·out)/cnt]`` summed over
+    each source pixel's four cells (``tl, tr, bl, br``), then ``gflow =
+    -(s0, s1)·d`` and ``gdepth = -(s0·fx + s1·fy - s2)``, 0 at an invalid
+    pixel.  flow, g, out (N,2,H,W); depth, cnt (N,H,W).  Returns (gflow,
+    gdepth or None)."""
+    n, _, h, w = flow.shape
+    dev = flow.device
+    fx, fy = flow[:, 0], flow[:, 1]
+    x2 = torch.arange(w, dtype=torch.float32, device=dev) + fx
+    y2 = torch.arange(h, dtype=torch.float32, device=dev).view(h, 1) + fy
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
+    ix_l = torch.floor(x2).clamp(0, w - 1).long()
+    iy_t = torch.floor(y2).clamp(0, h - 1).long()
+    ix_r = (ix_l + 1).clamp(max=w - 1)
+    iy_b = (iy_t + 1).clamp(max=h - 1)
+
+    a = g / cnt.clamp(min=1e-30).unsqueeze(1)
+    field = torch.cat([a, (a * out).sum(1, keepdim=True)], 1) if need_depth \
+        else a
+    c = field.shape[1]
+    field = field.reshape(n, c, h * w)
+    s = torch.zeros_like(field)
+    for iy, ix in ((iy_t, ix_l), (iy_t, ix_r), (iy_b, ix_l), (iy_b, ix_r)):
+        lin = (iy * w + ix).reshape(n, 1, h * w).expand(n, c, h * w)
+        s = s + torch.gather(field, 2, lin)
+    s = s.reshape(n, c, h, w)
+    gflow = torch.where(valid.unsqueeze(1), -s[:, :2] * depth.unsqueeze(1),
+                        0.0)
+    if not need_depth:
+        return gflow, None
+    gdepth = torch.where(valid, -(s[:, 0] * fx + s[:, 1] * fy - s[:, 2]), 0.0)
+    return gflow, gdepth
+
+
+def depth_flow_project_bwd(flow: torch.Tensor, depth: torch.Tensor,
+                           g: torch.Tensor, cnt: torch.Tensor,
+                           out: torch.Tensor, need_depth: bool = True):
+    """The depth projection's backward: kernel ``depth_flow_project_bwd`` on
+    CUDA tensors (``gdepth`` NULL where ``need_depth`` is false), the plain
+    version on CPU tensors.  Returns (gflow, gdepth or None)."""
+    if flow.device.type == "cpu":
+        return depth_flow_project_bwd_plain(flow, depth, g, cnt, out,
+                                            need_depth)
+    kernels.check_inputs("depth_flow_project_bwd", flow, depth, g, cnt, out)
+    n, _, h, w = flow.shape
+    for name, t, shape in (("depth", depth, (n, h, w)),
+                           ("g", g, (n, 2, h, w)), ("cnt", cnt, (n, h, w)),
+                           ("out", out, (n, 2, h, w))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"depth_flow_project_bwd: {name} must be "
+                             f"{shape}, got {tuple(t.shape)}")
+    gflow = torch.empty_like(flow)
+    gdepth = torch.empty_like(depth) if need_depth else None
+    kernels.launch("depth_flow_project_bwd", flow, depth, g, cnt, out, gflow,
+                   gdepth, n, h, w)
+    return gflow, gdepth
+
+
+class _DepthFlowProject(torch.autograd.Function):
+    """Forward: the weighted scatter (``flow_project_scatter``), the
+    weighted average and, with ``hole_fill``, the fill
+    (``flow_project_finalize``) of the detached sums.  Backward: the
+    reference's (``depth_flow_project_bwd``), which ignores the fill."""
+
+    @staticmethod
+    def forward(ctx, flow, depth_inv, hole_fill):
+        acc = scatter4(flow, depth_inv)
+        need_grad = any(ctx.needs_input_grad[:2])
+        out = _count_average(acc) if need_grad or not hole_fill else None
+        if need_grad:
+            ctx.save_for_backward(flow, depth_inv, acc[:, 2].contiguous(),
+                                  out)
+        return finalize(acc) if hole_fill else out
+
+    @staticmethod
+    def backward(ctx, g):
+        flow, depth_inv, cnt, out = ctx.saved_tensors
+        need_flow, need_depth, _ = ctx.needs_input_grad
+        gflow, gdepth = depth_flow_project_bwd(flow, depth_inv, g.contiguous(),
+                                               cnt, out, need_depth)
+        return gflow if need_flow else None, gdepth, None
+
+
 def depth_flow_project(flow: torch.Tensor, depth_inv: torch.Tensor,
                        hole_fill: bool = False) -> torch.Tensor:
-    """Depth-weighted flow projection, forward only, as
-    ``depth_flow_project(flow, depth_inv, hole_fill)`` of the JAX package:
-    closer pixels (larger inverse depth) dominate each cell's average.
+    """Depth-weighted flow projection, as ``depth_flow_project(flow,
+    depth_inv, hole_fill)`` of the JAX package: closer pixels (larger
+    inverse depth) dominate each cell's average.
 
     flow (N,2,H,W), depth_inv (N,H,W) or (N,1,H,W), positive.  On CUDA
     tensors it launches ``flow_project_scatter`` with the weight and, with
-    ``hole_fill``, ``flow_project_finalize``.  Raises where ``flow`` or
-    ``depth_inv`` needs a gradient (see the module docstring)."""
+    ``hole_fill``, ``flow_project_finalize``; its backward is the
+    reference's (see the module docstring), in both modes: the hole fill
+    takes no gradient, and the gradient is that of the unfilled average."""
     _check_flow(flow)
     n, _, h, w = flow.shape
     if depth_inv.dim() == 4:
         depth_inv = depth_inv.reshape(n, h, w)
-    acc = scatter4(flow, depth_inv.contiguous())
-    return finalize(acc) if hole_fill else _count_average(acc)
+    return _DepthFlowProject.apply(flow, depth_inv.contiguous(), hole_fill)

@@ -4,10 +4,13 @@
 The reference trains with Adamax in parameter groups: the three
 kernel-prediction nets at ``filter_lr_coe * lr``, PWC-Net at
 ``flow_lr_coe * lr`` and the rectifier at ``rectify_lr``.  Its vestigial
-OccNet, DeconvField and context nets join no optimizer; the port does not
-build them, so every parameter of the port's DAIN belongs to one of the three
-groups.  The plateau schedule's ``scale`` multiplies every group's rate, as
-ReduceLROnPlateau reduces every group by the same factor.
+OccNet and DeconvField join no optimizer, and the port does not build them.
+DAIN_slowmotion's context and depth nets join none either: they are
+``FROZEN``, JAX's ``stop_gradient`` plus ``set_to_zero``
+(``vfidkr_tpu/training/train_state.py:48-56,78,170-175``).  Every other
+parameter belongs to one of the three groups.  The plateau schedule's
+``scale`` multiplies every group's rate, as ReduceLROnPlateau reduces every
+group by the same factor.
 """
 
 from __future__ import annotations
@@ -41,11 +44,15 @@ GROUPS = {
     "flow": ("flownets",),
     "rectify": ("rectifyNet",),
 }
+# DAIN_slowmotion children that no optimizer trains and autograd skips
+FROZEN = ("ctxNet", "depthNet")
 
 
 def make_optimizer(model: nn.Module, config: TrainConfig) -> torch.optim.Adamax:
     """Adamax (betas 0.9/0.999, eps 1e-8) over the three groups; each group
-    keeps its ``base_lr`` beside the ``lr`` that ``set_lr_scale`` sets."""
+    keeps its ``base_lr`` beside the ``lr`` that ``set_lr_scale`` sets.
+    The ``FROZEN`` children's parameters get ``requires_grad_(False)``, so
+    autograd records nothing through them, and join no group."""
     lrs = {"filter": config.filter_lr_coe * config.lr,
            "flow": config.flow_lr_coe * config.lr,
            "rectify": config.rectify_lr}
@@ -55,10 +62,15 @@ def make_optimizer(model: nn.Module, config: TrainConfig) -> torch.optim.Adamax:
                   for p in getattr(model, child).parameters()]
         groups.append({"params": params, "lr": lrs[name],
                        "base_lr": lrs[name], "name": name})
+    frozen = [p for child in FROZEN if hasattr(model, child)
+              for p in getattr(model, child).parameters()]
+    for p in frozen:
+        p.requires_grad_(False)
     grouped = sum(len(g["params"]) for g in groups)
     total = len(list(model.parameters()))
-    if grouped != total:
-        raise ValueError(f"{total - grouped} parameters belong to no group")
+    if grouped + len(frozen) != total:
+        raise ValueError(f"{total - grouped - len(frozen)} parameters "
+                         f"belong to no group")
     return torch.optim.Adamax(groups, betas=(0.9, 0.999), eps=1e-8)
 
 
@@ -68,12 +80,20 @@ def set_lr_scale(optimizer: torch.optim.Optimizer, scale: float) -> None:
 
 
 def _model_losses(model, batch, config: TrainConfig):
-    """Forward and the reference's loss decomposition -> (total, metrics)."""
+    """Forward and the reference's loss decomposition -> (total, metrics).
+
+    DAIN_slowmotion's outputs are lists, one frame a step: each pixel loss
+    is the mean over the frames of their Charbonnier losses, and the
+    regularisers and the PSNR read the last frame, as JAX's
+    (``vfidkr_tpu/training/train_state.py:119-133``)."""
     res = model(batch["x0"], batch["x1"])
-    diffs = [o - batch["y"] for o in res["outputs"]]
-    pixel, offset, sym = L.part_loss(diffs, res["offsets"],
-                                     [batch["x0"], batch["x1"]],
-                                     config.epsilon)
+    frames = [o if isinstance(o, list) else [o] for o in res["outputs"]]
+    diffs = [[o - batch["y"] for o in outs] for outs in frames]
+    _, offset, sym = L.part_loss([ds[-1] for ds in diffs], res["offsets"],
+                                 [batch["x0"], batch["x1"]], config.epsilon)
+    pixel = [sum(L.charbonnier_loss(d, config.epsilon) for d in ds) / len(ds)
+             for ds in diffs]
+    diffs = [ds[-1] for ds in diffs]
     total = L.total_loss(pixel, config.alpha)
     metrics = {"pixel": torch.stack(pixel), "tv": offset[0], "sym": sym[0],
                "total": total, "psnr": L.psnr_from_diff(diffs[-1])}
