@@ -60,7 +60,16 @@ session comes last (7), since host-bound timings read slower after one:
    and (3,128,320,448), and checked at the ragged (2,128,37,75)), with the
    tolerance stated; K7 also on the paths' near-uniform move, across a sharp
    flow discontinuity, at C = 9, 37 and 200 and at the ragged 37x75 and
-   37x76, each with the number of its tiles that took the direct gather; K3
+   37x76, each with the number of its tiles that took the direct gather; K1
+   also on the paths' move, on the warp's exact bounds and at ragged
+   widths (at the slow-motion train step's N = 6, back-to-back launches
+   would keep part of its 66 MB in the 50 MB L2, so its time there is
+   phase 7's, inside the path); K2, plain and
+   depth-weighted, also on the paths' move (and at N = 6), a converging
+   flow, a jump whose tiles take the direct adds, landings on the last
+   column and row and ragged frames, each with the number of its tiles that
+   took the direct adds (the hit count equal bit for bit), its yardstick one
+   index_add_ over the 4 N H W targets built beforehand; K3
    also on a full-height edge band, runs of holes across word boundaries, an
    all-hole field and at (1,3,512,704), each held to equality; the backward kernels
    against the autograd of the plain forwards, and the depth projection's
@@ -68,7 +77,8 @@ session comes last (7), since host-bound timings read slower after one:
    the depth-weighted case, with and without the depth gradient, and on a
    flow landing on the last row and column; each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
-   its yardstick, the same six convs as bf16 cuDNN calls; and its bound: the
+   its yardstick, the same six convs as bf16 cuDNN calls, K2's beside
+   index_add_; and its bound: the
    larger of its bytes (each input read once, each output written once) at
    3.35 TB/s and its operations at 67 TFLOP/s float32 (989 TFLOP/s bf16
    for K4);
@@ -342,21 +352,27 @@ def phase_kernels(dev: torch.device) -> dict:
     cases = {}
 
     def case(key, kernel, fn, plain, err, nbytes, ops, peak=F32_FLOP_S,
-             library=None, per_call=1):
+             library=None, library_name=None, per_call=1):
         cases[key] = {"kernel": kernel, "fn": fn, "plain": plain, "err": err,
                       "bytes": nbytes, "ops": ops, "peak": peak,
-                      "library": library, "per_call": per_call}
+                      "library": library, "library_name": library_name,
+                      "per_call": per_call}
 
     # the warp: K1 on the frames; K7, and K1 for comparison, on the context;
     # K7 also on the paths' near-uniform move, across a sharp discontinuity
     # (tiles past its staging box), at other channel counts and at a ragged
     # frame (partial tiles and channel chunks)
     rng = np.random.RandomState(0)
-    rags = [(2, 37, 75), (2, 37, 76)]   # W % 4: 4- and 16-byte staging copies
+    rags = [(2, 37, 75), (2, 37, 76)]   # W % 4: 4- and 16-byte accesses
+    uniform = _t(geo.smooth_flow(rng, N, H, W, 0.5, (5.3, -3.1)), dev)
+    # K2 at the slow-motion train step's N = 6: both directions of 3 pairs
+    uniform6 = _t(geo.smooth_flow(rng, 3 * N, H, W, 0.5, (5.3, -3.1)), dev)
     warps = [("K1 C=3", image, flow, filt), ("K7 C=196", ctx, flow, filt),
              ("K1 C=196", ctx, flow, filt),
-             ("K7 C=196 near-uniform", ctx,
-              _t(geo.smooth_flow(rng, N, H, W, 0.5, (5.3, -3.1)), dev), filt),
+             ("K1 C=3 near-uniform", image, uniform, filt),
+             ("K1 C=3 edge flows", image,
+              _t(geo.warp_edge_flow(rng, N, H, W), dev), filt),
+             ("K7 C=196 near-uniform", ctx, uniform, filt),
              ("K7 C=196 discontinuity", ctx,
               _t(geo.discontinuous_flow(rng, N, H, W), dev), filt)]
     warps += [(f"K7 C={c}", torch.rand(N, c, H, W, generator=g).to(dev),
@@ -364,9 +380,9 @@ def phase_kernels(dev: torch.device) -> dict:
     for rag in rags:
         flow_rag = _t(geo.smooth_flow(rng, *rag, 8.0), dev)
         filt_rag = torch.randn(rag[0], 16, *rag[1:], generator=g).to(dev)
-        warps += [(f"K7 C={c} {rag}",
+        warps += [(f"K{1 if c <= FI.MAX_NARROW_C else 7} C={c} {rag}",
                    torch.rand(rag[0], c, *rag[1:], generator=g).to(dev),
-                   flow_rag, filt_rag) for c in (9, C_CTX)]
+                   flow_rag, filt_rag) for c in (1, 3, 8, 9, C_CTX)]
     for key, img, fl, fi in warps:
         kernel = ("filter_interpolate_fwd" if key.startswith("K1")
                   else "filter_interpolate_ctx")
@@ -393,20 +409,39 @@ def phase_kernels(dev: torch.device) -> dict:
                 raise AssertionError(f"{key}: no tile took the direct "
                                      f"gather")
 
-    # the projection: K2 plain and depth-weighted, then K3
+    # the projection: K2, plain and depth-weighted, on make_flow, the paths'
+    # move (also at N = 6), a converging flow (several sources a cell), a
+    # jump (tiles past the shared-memory box: direct adds), landings on the
+    # last column and row (the double add) and ragged frames; then K3
+    print(f"[kernels] depth_inv in [{depth_inv.min().item():.4f}, "
+          f"{depth_inv.max().item():.4f}] (1e-6 + exp(-U(-1, 3)))")
+    scatters = [("K2", flow, None), ("K2 depth-weighted", flow, depth_inv)]
+    for label, fl in (
+            ("near-uniform", uniform), ("N=6 near-uniform", uniform6),
+            ("converging", _t(geo.converging_flow(N, H, W, 0.75), dev)),
+            ("jump", _t(geo.scatter_jump_flow(rng, N, H, W), dev)),
+            ("border landings", _t(geo.border_landing_flow(rng, N, H, W), dev)),
+            *((str(rag), _t(geo.smooth_flow(rng, *rag, 8.0), dev))
+              for rag in rags)):
+        n, _, h, w = fl.shape
+        scatters += [(f"K2 {label}", fl, None),
+                     (f"K2 depth-weighted {label}", fl,
+                      _t(geo.depth_weight(rng, n, h, w), dev))]
+    for key, fl, wt in scatters:
+        got, err, direct = _compare_scatter(key, fl, wt)
+        weights = () if wt is None else (wt,)
+        # reads the flow (and weight), writes the sums; 12 adds a landing,
+        # and 3 multiplies by the weight
+        case(key, "flow_project_scatter", lambda f=fl, d=wt: FP.scatter4(f, d),
+             lambda f=fl, d=wt: FP.scatter4_plain(f, d), err,
+             _nbytes(fl, *weights, got),
+             _landings(fl, False) * (12 if wt is None else 15),
+             **({"library": index_add_call(fl, wt),
+                 "library_name": "one index_add_"}
+                if key in ("K2", "K2 depth-weighted") else {}))
+        cases[key]["direct_tiles"] = direct
     acc_k = FP.scatter4(flow)
     acc_p = FP.scatter4_plain(flow)
-    if not torch.equal(acc_k[:, 2], acc_p[:, 2]):
-        raise AssertionError("flow_project_scatter: hit count differs")
-    print(f"[kernels] flow_project_scatter: hit count equal "
-          f"(total {acc_k[:, 2].sum().item():.0f}, max per cell "
-          f"{acc_k[:, 2].max().item():.0f})")
-    cnt = acc_p[:, 2:].clamp(min=1)
-    err = _compare("flow_project_scatter (averaged flow; atomic order)",
-                   acc_k[:, :2] / cnt, acc_p[:, :2] / cnt)
-    case("K2", "flow_project_scatter", lambda: FP.scatter4(flow),
-         lambda: FP.scatter4_plain(flow), err, _nbytes(flow, acc_k),
-         proj_px * 12)
 
     holes = (acc_k[:, 2] <= 0).float().mean().item()
     fin_k = FP.finalize(acc_k)
@@ -418,18 +453,8 @@ def phase_kernels(dev: torch.device) -> dict:
          lambda: FP.finalize_plain(acc_k), err, _nbytes(acc_k, fin_k),
          acc_k[:, 2].numel() * 2)
 
-    print(f"[kernels] depth_inv in [{depth_inv.min().item():.4f}, "
-          f"{depth_inv.max().item():.4f}] (1e-6 + exp(-U(-1, 3)))")
     wacc_k = FP.scatter4(flow, depth_inv)
     wacc_p = FP.scatter4_plain(flow, depth_inv)
-    err = max(_compare(f"flow_project_scatter depth-weighted, channel {c} "
-                       f"(weight sum; atomic order)" if c == 2 else
-                       f"flow_project_scatter depth-weighted, channel {c}",
-                       wacc_k[:, c], wacc_p[:, c]) for c in range(3))
-    case("K2 depth-weighted", "flow_project_scatter",
-         lambda: FP.scatter4(flow, depth_inv),
-         lambda: FP.scatter4_plain(flow, depth_inv), err,
-         _nbytes(flow, depth_inv, wacc_k), proj_px * 15)
     wfin_k = FP.finalize(wacc_k)
     err = _compare_k3("flow_project_finalize on the weighted sums", wfin_k,
                       FP.finalize_plain(wacc_k))
@@ -514,9 +539,46 @@ def phase_kernels(dev: torch.device) -> dict:
              lambda x=x, w6=w6: RB.fused_resblocks_plain(x, w6), err,
              2 * _nbytes(x) + _nbytes(w6), RB.N_CONVS * 2 * c * c * 9 * n * h * w,
              peak=BF16_FLOP_S, per_call=RB.N_CONVS,
-             library=lambda x=x_cl, w6=w6: cudnn_chain(x, w6))
+             library=lambda x=x_cl, w6=w6: cudnn_chain(x, w6),
+             library_name="the bf16 cuDNN chain")
     torch.cuda.synchronize()
     return cases
+
+
+def _compare_scatter(name, flow, weight):
+    """K2 against its plain version: the hit count equal bit for bit
+    (unweighted: whole numbers, exact in any order), each channel within
+    ATOL * max(1, |plain|) (the flow sums and a weight sum in the atomics'
+    order).  Prints how many of the 8x32 tiles took the direct adds, and
+    raises if the jump takes none.  Returns the sums, the max |kernel -
+    plain| and that count."""
+    got, direct = FP.scatter4_counted(flow, weight)
+    want = FP.scatter4_plain(flow, weight)
+    n, _, h, w = flow.shape
+    if weight is None:
+        if not torch.equal(got[:, 2], want[:, 2]):
+            raise AssertionError(f"{name}: the hit count differs")
+        print(f"[kernels] {name}: hit count equal bit for bit (total "
+              f"{got[:, 2].sum().item():.0f}, max per cell "
+              f"{got[:, 2].max().item():.0f})")
+    err = max(_compare(f"flow_project_scatter {name} at {(n, h, w)}, channel "
+                       f"{c}", got[:, c], want[:, c]) for c in range(3))
+    tiles = n * math.ceil(h / 8) * math.ceil(w / 32)
+    print(f"[kernels] {name}: {direct} of {tiles} 8x32 tiles took the direct "
+          f"adds, the others summed in shared memory")
+    if name.endswith("jump") and direct == 0:
+        raise AssertionError(f"{name}: no tile took the direct adds")
+    return got, err, direct
+
+
+def index_add_call(flow, weight):
+    """K2's yardstick: one ``index_add_`` of the 4 N H W targets' values
+    into (3, N H W) sums, the targets and values built beforehand (the
+    plain version's prep).  Timed only; the port never calls it."""
+    idx, vals = FP.scatter4_targets(flow, weight)
+    idx, vals = idx.reshape(-1), vals.repeat(1, 4)
+    acc = torch.zeros(3, flow[:, 0].numel(), device=flow.device)
+    return lambda: acc.index_add_(1, idx, vals)
 
 
 def _depth_bwd_cases(case, dev, flow, depth_inv, cot) -> None:
@@ -1298,7 +1360,7 @@ def phase_call_times(cases) -> dict:
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         lib = ("" if library is None else
-               f", the bf16 cuDNN chain {library * 1000:.1f} us")
+               f", {c['library_name']} {library * 1000:.1f} us")
         print(f"[times] {key} ({c['kernel']}): per call {call * 1000:.1f} us "
               f"with the wrapper, plain {plain * 1000:.1f} us{lib} (CUDA "
               f"events, median of 50 x {inner}); bound "

@@ -169,6 +169,82 @@ def test_flow_project_finalize_layouts(dev, layout, n, h, w):
         assert not bool(got.any())
 
 
+def _scatter_flow(rng, kind, n, h, w):
+    import torch_geometry as geo
+    return {"converging": lambda: geo.converging_flow(n, h, w, 0.75),
+            "jump": lambda: geo.scatter_jump_flow(rng, n, h, w),
+            "border landings": lambda: geo.border_landing_flow(rng, n, h, w),
+            "near-uniform": lambda: geo.smooth_flow(rng, n, h, w, 0.5,
+                                                    (5.3, -3.1)),
+            "smooth": lambda: geo.smooth_flow(rng, n, h, w, 8.0)}[kind]()
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["plain", "depth-weighted"])
+@pytest.mark.parametrize("kind, n, h, w", [
+    ("converging", 2, 64, 64),              # several sources a cell
+    ("jump", 2, 64, 128),                   # tiles past the shared-memory box
+    ("border landings", 2, 64, 64),         # the double add
+    ("near-uniform", 6, 64, 96),            # the paths' move, N = 6
+    ("smooth", 2, 37, 75),                  # ragged: 4-byte flush
+    ("smooth", 2, 37, 76),                  # ragged: 16-byte flush
+])
+def test_flow_project_scatter_geometry(dev, kind, n, h, w, weighted):
+    """K2's shared-memory boxes and direct adds against the plain version:
+    the count equal bit for bit, the sums (the weight sum too) within 1e-5
+    x max(1, |plain|); only the jump takes direct-add tiles."""
+    import numpy as np
+    import torch_geometry as geo
+    from vfidkr_torch.ops import flow_projection as FP
+    rng = np.random.RandomState(5)
+    flow = torch.from_numpy(_scatter_flow(rng, kind, n, h, w)).to(dev)
+    weight = (torch.from_numpy(geo.depth_weight(rng, n, h, w)).to(dev)
+              if weighted else None)
+    got, direct = FP.scatter4_counted(flow, weight)
+    want = FP.scatter4_plain(flow, weight)
+    if not weighted:
+        assert torch.equal(got[:, 2], want[:, 2])
+    assert ((got - want).abs() / want.abs().clamp(min=1)).max() <= ATOL
+    assert (direct > 0) == (kind == "jump")
+
+
+@pytest.mark.parametrize("kind, n, c, h, w", [
+    ("edge flows", 2, 3, 48, 64),           # |f| == W/2, H/2; inclusive edges
+    ("edge flows", 2, 1, 48, 64),
+    ("smooth", 6, 3, 64, 96),               # N = 6
+    ("smooth", 2, 8, 40, 72),
+    ("smooth", 2, 1, 37, 75),               # ragged: partial tiles
+    ("smooth", 2, 3, 37, 76),
+    ("smooth", 2, 8, 37, 75),
+])
+def test_filter_interpolate_fwd_geometry(dev, kind, n, c, h, w):
+    """K1 against its plain version, |diff| <= 1e-5 x max(1, |plain|); an
+    invalid pixel copies its source bit for bit."""
+    import numpy as np
+    import torch_geometry as geo
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import filter_interpolation as FI
+    rng = np.random.RandomState(6)
+    flow = (geo.warp_edge_flow(rng, n, h, w) if kind == "edge flows"
+            else geo.smooth_flow(rng, n, h, w, 8.0))
+    image, flow, filt = (torch.from_numpy(a).to(dev)
+                         for a in geo.k7_inputs(rng, n, c, h, w, flow))
+    before = kernels.LAUNCHES["filter_interpolate_fwd"]
+    got = FI.filter_interpolate(image, flow, filt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["filter_interpolate_fwd"] == before + 1
+    want = FI.filter_interpolate_plain(image, flow, filt)
+    assert ((got - want).abs() / want.abs().clamp(min=1)).max() <= ATOL
+    fx, fy = flow[:, 0], flow[:, 1]
+    x2 = torch.arange(w, device=dev) + fx
+    y2 = torch.arange(h, device=dev).view(h, 1) + fy
+    invalid = ~((x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
+                & (fx.abs() < w / 2) & (fy.abs() < h / 2))
+    assert bool(invalid.any())
+    mask = invalid.unsqueeze(1).expand_as(got)
+    assert torch.equal(got[mask], image[mask])
+
+
 def test_kernels_reject_bad_inputs(dev):
     from vfidkr_torch.ops import filter_interpolation as FI
     from vfidkr_torch.ops import flow_projection as FP

@@ -1,8 +1,8 @@
-"""The plain versions of K7 and K3 against the JAX package, on the inputs
-that reach the kernels' branches (tests/torch_geometry.py): the card holds
-each kernel to its plain version, so these pin the plain versions to the
-reference exactly where the kernels take their staged, direct-gather and
-word-scan paths.
+"""The plain versions of K7, K3, K2 and K1 against the JAX package, on the
+inputs that reach the kernels' branches (tests/torch_geometry.py): the card
+holds each kernel to its plain version, so these pin the plain versions to
+the reference exactly where the kernels take their staged, direct-gather,
+word-scan, shared-memory-box, direct-add and ragged-edge paths.
 
 * ``finalize_plain`` (K3) against JAX's ``fill_holes_pallas`` (interpret
   mode) and ``fill_holes``: a full-height band of empty columns at the
@@ -14,6 +14,20 @@ word-scan paths.
   ``filter_interpolate(impl="block")``: across a sharp flow discontinuity
   (tiles past K7's staging box) and at a ragged 37x75 frame.  Tolerance
   1e-5 absolute and relative, float32 sums in another order.
+* ``scatter4_plain`` (K2's plain version), plain and depth-weighted, against
+  JAX's ``scatter4_band_pallas`` (interpret mode) on its own landing prep
+  where the frame is whole 16x32 bands and the landings stay in its slab,
+  else against JAX's XLA scatter: a converging flow (several sources a
+  cell), a jump whose tiles' targets spread past K2's shared-memory box,
+  landings exactly on the last column and row (the double add), and the
+  ragged 37x75 and 37x76 frames.  The count to 1e-6 (whole numbers), the
+  sums to 1e-5 absolute and relative.
+* ``filter_interpolate_plain`` (K1's plain version) against JAX's
+  ``filter_bandmm_pallas`` (interpret mode, through
+  ``_filter_interpolate_slab``) at 16-row bands, else JAX's
+  ``filter_interpolate(impl="block")``: the |f| == W/2, H/2 and W/2 - 0.5,
+  H/2 - 0.5 rows and the inclusive edges, N = 6, and ragged widths (75,
+  76) at C = 1, 3 and 8.  Tolerance 1e-5 absolute and relative.
 
 The port is NCHW, the JAX package NHWC.
 """
@@ -28,17 +42,21 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import torch_geometry as geo  # noqa: E402
+import vfidkr_tpu.ops.flow_projection as P  # noqa: E402
 from vfidkr_tpu.ops import filter_interpolate as jax_filter_interpolate  # noqa: E402
+from vfidkr_tpu.ops.filter_interpolation import _filter_interpolate_slab  # noqa: E402
 from vfidkr_tpu.ops.flow_projection import fill_holes as jax_fill_holes  # noqa: E402
 from vfidkr_tpu.ops.pallas.fillhole_kernel import fill_holes_pallas  # noqa: E402
+from vfidkr_tpu.ops.pallas.projection_band_kernel import scatter4_band_pallas  # noqa: E402
 
 from vfidkr_torch import kernels  # noqa: E402
 from vfidkr_torch.ops import flow_projection as FP  # noqa: E402
 from vfidkr_torch.ops.filter_interpolation import (  # noqa: E402
     filter_interpolate, filter_interpolate_plain)
 
-CTX_SOURCE = (Path(__file__).resolve().parents[1] / "vfidkr_torch" / "csrc"
-              / "filter_interpolate_ctx.cu")
+CSRC = Path(__file__).resolve().parents[1] / "vfidkr_torch" / "csrc"
+CTX_SOURCE = CSRC / "filter_interpolate_ctx.cu"
+SCATTER_SOURCE = CSRC / "flow_project_scatter.cu"
 
 
 def _hole_sums(layout):
@@ -129,3 +147,134 @@ def test_ctx_warp_plain_matches_jax_block(kind):
                                   impl="block")
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1),
                                np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# K2: (flow generator, N, H, W, JAX path): "band" where the frame is whole
+# 16x32 bands and every landing stays within the banded kernel's slab
+SCATTER_CASES = {
+    "converging": (lambda r, n, h, w: geo.converging_flow(n, h, w), 2, 64, 64,
+                   "band"),
+    "jump": (geo.scatter_jump_flow, 2, 64, 128, "xla"),
+    "border landings": (geo.border_landing_flow, 2, 64, 64, "band"),
+    "ragged 37x75": (lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 8.0),
+                     2, 37, 75, "xla"),
+    "ragged 37x76": (lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 8.0),
+                     2, 37, 76, "xla"),
+}
+
+
+def _scatter_case(kind):
+    make, n, h, w, path = SCATTER_CASES[kind]
+    rng = np.random.RandomState(13)
+    return make(rng, n, h, w), geo.depth_weight(rng, n, h, w), path
+
+
+def _k2_boxes(flow):
+    """Per 8x32 source tile with a valid landing: the cells of the box its
+    valid pixels' four targets cover, as K2 reduces it (widened to whole
+    groups of four columns where W % 4 == 0, and its rows padded to a
+    multiple of 32 cells)."""
+    n, _, h, w = flow.shape
+    x2 = np.arange(w)[None, None, :] + flow[:, 0]
+    y2 = np.arange(h)[None, :, None] + flow[:, 1]
+    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
+    ix, iy = np.floor(x2).astype(int), np.floor(y2).astype(int)
+    vec = 4 if w % 4 == 0 else 1
+    cells = []
+    for b in range(n):
+        for y0 in range(0, h, 8):
+            for x0 in range(0, w, 32):
+                v = valid[b, y0:y0 + 8, x0:x0 + 32]
+                if v.any():
+                    xs = ix[b, y0:y0 + 8, x0:x0 + 32][v]
+                    ys = iy[b, y0:y0 + 8, x0:x0 + 32][v]
+                    bx0 = xs.min() // vec * vec
+                    bx1 = min(xs.max() + 1, w - 1)
+                    pitch = ((((bx1 - bx0) | (vec - 1)) + 1) + 31) // 32 * 32
+                    cells.append(pitch * (min(ys.max() + 1, h - 1) - ys.min() + 1))
+    return np.array(cells)
+
+
+def test_scatter_inputs_reach_both_branches():
+    """The jump sends some of K2's tiles to the direct adds and sums the
+    others in shared memory; every other case sums every tile there; the
+    border case lands on the last column and row; the converging flow puts
+    several sources on a cell."""
+    box_max = int(re.search(r"BOX_MAX = (\d+);", SCATTER_SOURCE.read_text())[1])
+    for kind in SCATTER_CASES:
+        boxes = _k2_boxes(_scatter_case(kind)[0])
+        if kind == "jump":
+            assert (boxes > box_max).any() and (boxes <= box_max).any()
+        else:
+            assert (boxes <= box_max).all(), kind
+    flow = torch.from_numpy(_scatter_case("border landings")[0])
+    cnt = FP.scatter4_plain(flow)[:, 2]
+    assert cnt[:, -1, -1].min() >= 4 and cnt[:, 5, -1].min() >= 2
+    cnt = FP.scatter4_plain(torch.from_numpy(_scatter_case("converging")[0]))
+    assert cnt[:, 2].max() >= 8
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["plain", "depth-weighted"])
+@pytest.mark.parametrize("kind", list(SCATTER_CASES))
+def test_scatter_plain_matches_jax(kind, weighted):
+    flow, depth, path = _scatter_case(kind)
+    nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))  # noqa: E731
+    if weighted:
+        prep = jax.vmap(P._depth_prep)(nhwc(flow), jnp.asarray(depth))
+    else:
+        prep = jax.vmap(P._scatter_prep)(nhwc(flow))
+    if path == "band":
+        assert not bool(P._oversize_pred(prep[0], prep[2], prep[4], 16, 32, 32))
+        want = scatter4_band_pallas(*prep, band=16, tw=32)
+    else:
+        want = P._scatter4(*prep)
+    want = np.asarray(want).transpose(0, 3, 1, 2)
+    kernels.reset_launches()
+    got = FP.scatter4(torch.from_numpy(flow),
+                      torch.from_numpy(depth) if weighted else None).numpy()
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    tol = 1e-5 if weighted else 1e-6      # a weight sum; a count
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=tol, atol=tol)
+    np.testing.assert_allclose(got[:, :2], want[:, :2], rtol=1e-5, atol=1e-5)
+
+
+# K1: (flow generator, N, C, H, W, JAX path): "slab" reaches
+# filter_bandmm_pallas at 16-row bands a frame wide
+WARP_CASES = {
+    "edge flows": (geo.warp_edge_flow, 2, 3, 48, 64, "slab"),
+    "N=6": (lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 6.0),
+            6, 3, 32, 64, "slab"),
+    "ragged 37x75 C=3": (lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 8.0),
+                         2, 3, 37, 75, "block"),
+    "ragged 37x76 C=1": (lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 8.0),
+                         2, 1, 37, 76, "block"),
+    "ragged 37x76 C=8": (lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 8.0),
+                         1, 8, 37, 76, "block"),
+}
+
+
+@pytest.mark.parametrize("kind", list(WARP_CASES))
+def test_warp_plain_matches_jax(kind):
+    make, n, c, h, w, path = WARP_CASES[kind]
+    rng = np.random.RandomState(17)
+    image, flow, filt = geo.k7_inputs(rng, n, c, h, w, make(rng, n, h, w))
+    kernels.reset_launches()
+    got = filter_interpolate(*(torch.from_numpy(a) for a in (image, flow, filt)))
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))  # noqa: E731
+    if path == "slab":
+        want = _filter_interpolate_slab(nhwc(image), nhwc(flow), nhwc(filt),
+                                        4, 16, w)
+    else:
+        want = jax_filter_interpolate(nhwc(image), nhwc(flow), nhwc(filt),
+                                      impl="block")
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+    if kind == "edge flows":
+        # |fx| == W/2 and |fy| == H/2 copy the source; W/2 - 0.5 does not
+        assert torch.equal(got[0, :, 2, :w // 2 - 1],
+                           torch.from_numpy(image[0, :, 2, :w // 2 - 1]))
+        assert torch.equal(got[0, :, 4], torch.from_numpy(image[0, :, 4]))
+        assert not torch.equal(got[0, :, 3, :w // 2 - 1],
+                               torch.from_numpy(image[0, :, 3, :w // 2 - 1]))

@@ -1,12 +1,17 @@
-"""Inputs that reach the branches of K7 (``filter_interpolate_ctx``) and K3
-(``flow_project_finalize``), made with numpy from a seed, NCHW float32.
+"""Inputs that reach the branches of K7 (``filter_interpolate_ctx``), K3
+(``flow_project_finalize``), K2 (``flow_project_scatter``) and K1
+(``filter_interpolate_fwd``), made with numpy from a seed, NCHW float32.
 
 K7 stages the 4x4 windows of an 8x32 output tile in shared memory, and takes
 its direct gather for a tile whose windows spread over too many cells; K3
 searches filled bitmasks, 32 cells a word, and reads on past its 32x32 tile
-where a hole has no filled cell inside it.  The CPU tests hold the plain
-versions to the JAX package on these inputs, and the card-only tests hold the
-kernels to the plain versions on them.
+where a hole has no filled cell inside it.  K2 sums an 8x32 tile of source
+pixels in a shared-memory box of the cells they land on, and adds straight
+to the sums where that box is too large, and flushes the box by 16-byte adds
+where W % 4 == 0; K1 reads its flow and filter before the validity test and
+its taps clamped at the frame's edge.  The CPU tests hold the plain versions
+to the JAX package on these inputs, and the card-only tests hold the kernels
+to the plain versions on them.
 """
 import numpy as np
 
@@ -82,4 +87,63 @@ def edge_band_flow(n, h, w, shift=24.0) -> np.ndarray:
     the columns left of ``shift`` empty over the whole height."""
     flow = np.zeros((n, 2, h, w), np.float32)
     flow[:, 0] = shift
+    return flow
+
+
+def converging_flow(n, h, w, k=0.4) -> np.ndarray:
+    """Every pixel moves toward the top-left corner by ``k`` of its
+    distance from it: the frame folds into its top-left (1 - k)^2 part, and
+    each cell there takes the adds of several source pixels, neighbouring
+    lanes of a warp landing in one cell.  fx, fy <= 0, so a cell's flow sums
+    keep one sign."""
+    pos = np.stack(np.broadcast_arrays(np.arange(w)[None, :],
+                                       np.arange(h)[:, None]))
+    flow = np.broadcast_to(-k * pos[None], (n, 2, h, w))
+    return np.ascontiguousarray(flow, np.float32)
+
+
+def scatter_jump_flow(rng, n, h, w) -> np.ndarray:
+    """(+44, +28) px on the top-left side of the line x + 2y = (W + 2H) / 4
+    and (+3, +2) on the other, plus a smooth +-1: the targets of an 8x32
+    tile that the line crosses spread over some 80 x 37 cells, past K2's
+    shared-memory box.  Both sides move right and down, so a cell's flow
+    sums keep one sign."""
+    near = (np.arange(w)[None, :] + 2 * np.arange(h)[:, None]
+            < (w + 2 * h) / 4)
+    jump = np.where(near[None, None], np.array([44.0, 28.0]).reshape(1, 2, 1, 1),
+                    np.array([3.0, 2.0]).reshape(1, 2, 1, 1))
+    return np.ascontiguousarray(smooth_flow(rng, n, h, w, 1.0) + jump,
+                                np.float32)
+
+
+def border_landing_flow(rng, n, h, w) -> np.ndarray:
+    """A smooth move of 0-1 px right and down, but the last 12 columns land
+    exactly on x2 == W-1 and the last 10 rows exactly on y2 == H-1 (their
+    two right or bottom targets are one cell, which takes two adds; the
+    corner four)."""
+    flow = rng.rand(n, 2, h, w).astype(np.float32)
+    flow[:, 0, :, w - 12:] = (w - 1) - np.arange(w - 12, w, dtype=np.float32)
+    flow[:, 1, h - 10:, :] = ((h - 1) - np.arange(h - 10, h, dtype=np.float32)
+                              )[:, None]
+    return flow
+
+
+def depth_weight(rng, n, h, w) -> np.ndarray:
+    """An inverse depth 1e-6 + exp(-U(-1, 3)), in (0.0498, 2.7183]: the
+    depth-weighted projection's weight."""
+    return (1e-6 + np.exp(-rng.uniform(-1, 3, (n, h, w)))).astype(np.float32)
+
+
+def warp_edge_flow(rng, n, h, w) -> np.ndarray:
+    """A smooth +-6 px flow with the warp's bounds met exactly on whole rows
+    of the first image: (W/2, 0) and (0, H/2) (invalid by |f| where the
+    landing is in the frame: the pixel is copied), (W/2 - 0.5, 0) and
+    (0, H/2 - 0.5) (valid), x2 == W-1 and y2 == H-1 (valid, inclusive)."""
+    flow = smooth_flow(rng, n, h, w, 6.0)
+    rows = {2: (w / 2, 0.0), 3: (w / 2 - 0.5, 0.0), 4: (0.0, h / 2),
+            5: (0.0, h / 2 - 0.5), h - 7: (0.0, 6.0)}
+    for y, f in rows.items():
+        flow[0, :, y, :] = np.asarray(f, np.float32)[:, None]
+    flow[0, 0, 6, :] = (w - 1) - np.arange(w, dtype=np.float32)
+    flow[0, 1, 6, :] = 0.0
     return flow

@@ -16,91 +16,113 @@
 //            tap (dj, di) reads image[clamp(iy-1+dj), clamp(ix-1+di)] with weight
 //            filt[dj*4+di] * (dj >= 2 ? beta : 1-beta) * (di >= 2 ? alpha : 1-alpha)
 // The filter index is the unclamped window position; only the read is clamped.
+// The taps are summed in order t = dj*4 + di = 0..15.
 //
-// What bounds it on the H100: memory.  Per pixel it streams 4*(2 + 16 + C) bytes of
-// flow, filter and image and writes 4*C bytes (96 bytes at C=3), against 16*C
-// multiply-adds; the 16 tap reads per channel are gathers that mostly hit L1/L2,
-// because neighbouring pixels land on neighbouring windows for smooth flows.
-// Design: one thread per output pixel, threads laid along x so that the flow,
-// filter and output accesses of a warp are coalesced; the 16 tap weights and
-// offsets are computed once into registers and reused for every channel (C is a
-// runtime argument, so the same kernel serves the 3-channel frames and wider
-// feature maps).
+// What bounds it on the H100: memory, and the taps' trips through L1.  Per pixel it
+// must read 4*(2 + 16 + C) bytes of flow, filter and image and write 4*C bytes (96
+// bytes at C = 3: 6.6 us at 2x3x256x448 and 3.35 TB/s), against 16*C multiply-adds.
+// At that size the grid is resident in about one wave, so a thread's chain of
+// dependent memory round trips sets the time: loaded one after another (the flow,
+// then the filter once the landing is known valid, then the taps), a thread waits
+// three round trips.
+// Design: a block owns a tile of 4 rows x 32 pixels, a thread a pixel, a warp a
+// row, so that every own-pixel access of a warp is one 128-byte line.  The flow and
+// all 16 filter planes load before the validity test (the bound counts every
+// filter byte anyway): a thread's own bytes arrive in one round trip, its taps
+// follow in a second.  The filter is read once, so it streams past the caches
+// (ld.global.cs, evict first) and leaves them to the image taps that neighbouring
+// windows share; the output streams out the same way.  An invalid pixel reads no
+// taps.  C is a runtime argument (<= 8 on the paths), a channel at a time.  What
+// is left is the taps: 16 warp-wide gathers a channel, each over about two L1
+// lines.  Four adjacent pixels a thread with 16-byte accesses was tried and is
+// slower: its 64 filter weights and 32 tap offsets take 255 registers, and its
+// taps wait in turn.  The image is not staged in shared memory, as K7 stages its
+// 196 channels: the "no taps" ablation of tools/bench_k1_k2.py bounds what that
+// could save.  The grid is 2D over the tiles, the batch on z: no 64-bit division.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void filter_interpolate_fwd_kernel(const float* __restrict__ image,
-                                              const float* __restrict__ flow,
-                                              const float* __restrict__ filt,
-                                              float* __restrict__ out,
-                                              int n, int c, int h, int w) {
-  const long long hw = (long long)h * w;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * hw) return;
-  const long long b = idx / hw;
-  const long long p = idx - b * hw;
-  const int y = (int)(p / w);
-  const int x = (int)(p - (long long)y * w);
+constexpr int TW = 32;              // tile columns: a warp
+constexpr int TH = 4;               // tile rows: a warp each
 
-  const float fx = flow[(2 * b) * hw + p];
-  const float fy = flow[(2 * b + 1) * hw + p];
+__global__ void __launch_bounds__(TW * TH)
+    filter_interpolate_fwd_kernel(const float* __restrict__ image,
+                                  const float* __restrict__ flow,
+                                  const float* __restrict__ filt,
+                                  float* __restrict__ out, int c, int h, int w) {
+  const int x = blockIdx.x * TW + threadIdx.x;
+  const int y = blockIdx.y * TH + threadIdx.y;
+  const int b = blockIdx.z;
+  if (x >= w || y >= h) return;
+  const long long hw = (long long)h * w;
+  const long long p = (long long)y * w + x;
+
+  // the pixel's own bytes, all in flight at once; the filter is read once, so
+  // it streams (evict first)
+  const float fx = __ldg(flow + 2LL * b * hw + p);
+  const float fy = __ldg(flow + (2LL * b + 1) * hw + p);
+  float wgt[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) wgt[t] = __ldcs(filt + (16LL * b + t) * hw + p);
+
   const float x2 = (float)x + fx;
   const float y2 = (float)y + fy;
-  const float* img = image + b * c * hw;
-  float* dst = out + b * c * hw;
-
   const bool valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) &&
                      y2 <= (float)(h - 1) && fabsf(fx) < (float)w / 2.0f &&
                      fabsf(fy) < (float)h / 2.0f;
-  if (!valid) {
-    for (int ch = 0; ch < c; ++ch) dst[ch * hw + p] = img[ch * hw + p];
-    return;
+  const float xf = floorf(x2);
+  const float yf = floorf(y2);
+  const float alpha = x2 - xf;
+  const float beta = y2 - yf;
+  const int ix = valid ? (int)xf : 0;
+  const int iy = valid ? (int)yf : 0;
+  int rows[4], cols[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    rows[d] = min(max(iy - 1 + d, 0), h - 1) * w;
+    cols[d] = min(max(ix - 1 + d, 0), w - 1);
   }
-
-  const float x0 = floorf(x2);
-  const float y0 = floorf(y2);
-  const float alpha = x2 - x0;
-  const float beta = y2 - y0;
-  const int ix = (int)x0;
-  const int iy = (int)y0;
-
-  const float* k = filt + (16 * b) * hw + p;
-  float wgt[16];
-  int off[16];
 #pragma unroll
   for (int dj = 0; dj < 4; ++dj) {
     const float wy = dj >= 2 ? beta : 1.0f - beta;
-    const int ty = min(max(iy - 1 + dj, 0), h - 1);
 #pragma unroll
     for (int di = 0; di < 4; ++di) {
       const float wx = di >= 2 ? alpha : 1.0f - alpha;
-      const int tx = min(max(ix - 1 + di, 0), w - 1);
-      wgt[dj * 4 + di] = k[(dj * 4 + di) * hw] * wy * wx;
-      off[dj * 4 + di] = ty * w + tx;
+      wgt[dj * 4 + di] = wgt[dj * 4 + di] * wy * wx;
     }
   }
 
+  const float* img = image + (long long)b * c * hw;
+  float* dst = out + (long long)b * c * hw;
   for (int ch = 0; ch < c; ++ch) {
     const float* plane = img + ch * hw;
     float acc = 0.0f;
+    if (valid) {
 #pragma unroll
-    for (int t = 0; t < 16; ++t) acc += wgt[t] * plane[off[t]];
-    dst[ch * hw + p] = acc;
+      for (int dj = 0; dj < 4; ++dj) {
+#pragma unroll
+        for (int di = 0; di < 4; ++di)
+          acc += wgt[dj * 4 + di] * __ldg(plane + rows[dj] + cols[di]);
+      }
+    } else {
+      acc = __ldg(plane + p);
+    }
+    __stcs(dst + ch * hw + p, acc);
   }
 }
 
 }  // namespace
 
+// image and out (N,C,H,W), flow (N,2,H,W), filt (N,16,H,W); any C >= 1.
 extern "C" int vfidkr_filter_interpolate_fwd(const float* image, const float* flow,
                                              const float* filt, float* out, int n,
                                              int c, int h, int w,
                                              cudaStream_t stream) {
-  const long long total = (long long)n * h * w;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  filter_interpolate_fwd_kernel<<<blocks, threads, 0, stream>>>(image, flow, filt,
-                                                                 out, n, c, h, w);
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  filter_interpolate_fwd_kernel<<<grid, dim3(TW, TH), 0, stream>>>(image, flow, filt,
+                                                                   out, c, h, w);
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,9 @@ SIGNATURES = {
     # image, flow, filt, out, n, c, h, w, direct-gather tile count (or NULL),
     # stream
     "vfidkr_filter_interpolate_ctx": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # flow, weight (or NULL), acc, n, h, w, stream
-    "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _P],
+    # flow, weight (or NULL), acc, n, h, w, direct-add tile count (or NULL),
+    # stream
+    "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _P, _P],
     # flow, g, gflow, n, h, w, stream
     "vfidkr_flow_project_scatter_bwd": [_P, _P, _P, _I, _I, _I, _P],
     # flow, depth, g, cnt, out, gflow, gdepth (or NULL), n, h, w, stream

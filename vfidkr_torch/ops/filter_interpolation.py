@@ -22,7 +22,8 @@ the JAX package's ``jnp.clip`` halves it there.
 On CUDA tensors ``filter_interpolate`` launches a forward kernel chosen by
 the channel count, as the JAX package dispatches (``:682-688``):
 ``filter_interpolate_fwd`` (``vfidkr_torch/csrc/filter_interpolate.cu``,
-one thread per pixel) for C <= 8, and ``filter_interpolate_ctx``
+a thread per pixel, its flow and 16 filter planes loaded at once) for
+C <= 8, and ``filter_interpolate_ctx``
 (``vfidkr_torch/csrc/filter_interpolate_ctx.cu``, a block per 8x32 tile
 and range of channels, its windows staged in shared memory) for wider
 tensors such as DAIN_slowmotion's 196-channel context.  Either is the forward of one autograd Function, whose backward is

@@ -19,7 +19,10 @@ Four CUDA kernels carry it on the card:
 
 * ``scatter4``: the scatter into (N,3,H,W) sums, channel 2 the count or
   the weight sum (``flow_project_scatter``,
-  ``vfidkr_torch/csrc/flow_project_scatter.cu``); unweighted, through an
+  ``vfidkr_torch/csrc/flow_project_scatter.cu``: a block per 8x32 tile of
+  source pixels sums its adds in shared memory and flushes them once;
+  ``scatter4_counted`` also returns how many tiles spread too far for that
+  and added straight to the sums); unweighted, through an
   autograd Function whose backward is ``flow_project_scatter_bwd``
   (``vfidkr_torch/csrc/flow_project_scatter_bwd.cu``);
 * ``finalize``: the count average and hole fill, inference only
@@ -69,9 +72,12 @@ def _check_weight(weight, flow):
                          f"{tuple(weight.shape)}")
 
 
-def scatter4_plain(flow: torch.Tensor,
-                   weight: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the scatter: four ``index_add_`` passes."""
+def scatter4_targets(flow: torch.Tensor, weight: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scatter's targets and values: (4, N·H·W) flat cell indices into
+    (N·H·W) planes (top-left, top-right, bottom-left, bottom-right) and the
+    (3, N·H·W) values each pixel adds at all four, 0 where it lands outside
+    the frame."""
     _check_flow(flow)
     _check_weight(weight, flow)
     n, _, h, w = flow.shape
@@ -91,21 +97,43 @@ def scatter4_plain(flow: torch.Tensor,
     else:
         d = weight * valid.float()
         vals = torch.stack([-fx * d, -fy * d, d])
-    vals = vals.reshape(3, n * h * w)
     base = (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1)
-    acc = torch.zeros(3, n * h * w, dtype=torch.float32, device=dev)
-    for iy, ix in ((iy_t, ix_l), (iy_t, ix_r), (iy_b, ix_l), (iy_b, ix_r)):
-        acc.index_add_(1, (base + iy * w + ix).reshape(-1), vals)
+    idx = torch.stack([(base + iy * w + ix).reshape(-1) for iy, ix in
+                       ((iy_t, ix_l), (iy_t, ix_r), (iy_b, ix_l), (iy_b, ix_r))])
+    return idx, vals.reshape(3, n * h * w)
+
+
+def scatter4_plain(flow: torch.Tensor,
+                   weight: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the scatter: four ``index_add_`` passes."""
+    idx, vals = scatter4_targets(flow, weight)
+    n, _, h, w = flow.shape
+    acc = torch.zeros(3, n * h * w, dtype=torch.float32, device=flow.device)
+    for target in idx:
+        acc.index_add_(1, target, vals)
     return acc.reshape(3, n, h, w).permute(1, 0, 2, 3).contiguous()
 
 
-def _launch_scatter4(flow, weight):
+def _launch_scatter4(flow, weight, direct_tiles=None):
     kernels.check_inputs("flow_project_scatter", flow,
                          *(() if weight is None else (weight,)))
     n, _, h, w = flow.shape
     acc = torch.zeros((n, 3, h, w), dtype=torch.float32, device=flow.device)
-    kernels.launch("flow_project_scatter", flow, weight, acc, n, h, w)
+    kernels.launch("flow_project_scatter", flow, weight, acc, n, h, w,
+                   direct_tiles)
     return acc
+
+
+def scatter4_counted(flow: torch.Tensor, weight: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, int]:
+    """``flow_project_scatter`` on CUDA tensors, forward only, with the
+    number of 8x32 source tiles whose targets spread too far to sum in
+    shared memory and took the kernel's direct adds instead."""
+    _check_flow(flow)
+    _check_weight(weight, flow)
+    count = torch.zeros(1, dtype=torch.int32, device=flow.device)
+    acc = _launch_scatter4(flow, weight, count)
+    return acc, int(count.item())
 
 
 class _Scatter4Kernel(torch.autograd.Function):
