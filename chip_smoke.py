@@ -408,6 +408,17 @@ def phase_kernels(dev: torch.device) -> dict:
             if key.endswith("discontinuity") and direct == 0:
                 raise AssertionError(f"{key}: no tile took the direct "
                                      f"gather")
+    # K1 at the train steps' N = 6 (the batch on the grid's z up to 5), on
+    # three draws of make_flow and on the paths' move: compared, not timed
+    # (the in-path profiles time it at this shape)
+    image6 = torch.rand(3 * N, 3, H, W, generator=g).to(dev)
+    filt6 = torch.randn(3 * N, 16, H, W, generator=g).to(dev)
+    flow6 = torch.cat([make_flow(g) for _ in range(3)]).to(dev)
+    for label, fl in (("make_flow x3", flow6), ("near-uniform", uniform6)):
+        _compare(f"filter_interpolate_fwd K1 C=3 N=6 {label} at "
+                 f"{tuple(image6.shape)}",
+                 FI.filter_interpolate(image6, fl, filt6),
+                 FI.filter_interpolate_plain(image6, fl, filt6))
 
     # the projection: K2, plain and depth-weighted, on make_flow, the paths'
     # move (also at N = 6), a converging flow (several sources a cell), a

@@ -212,6 +212,7 @@ def test_flow_project_scatter_geometry(dev, kind, n, h, w, weighted):
     ("edge flows", 2, 3, 48, 64),           # |f| == W/2, H/2; inclusive edges
     ("edge flows", 2, 1, 48, 64),
     ("smooth", 6, 3, 64, 96),               # N = 6
+    ("smooth", 6, 3, 256, 448),             # the train steps' full frame
     ("smooth", 2, 8, 40, 72),
     ("smooth", 2, 1, 37, 75),               # ragged: partial tiles
     ("smooth", 2, 3, 37, 76),

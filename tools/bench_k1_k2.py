@@ -19,11 +19,9 @@ pixels pushed out of the frame) and on the paths' near-uniform
   as wide as the box`` (no padding of a box row to whole rows of 32 banks).
   K2 also on a smooth converging flow (each cell the target of several
   neighbouring lanes, where the run sums act).
-* K1 at C = 3: as committed; ``four pixels a thread with 16-byte
-  accesses``;
-  ``filter after the validity test`` (the 16 filter planes asked for only
-  once the flow says a pixel is valid: two round trips before the taps, as
-  before); ``no taps`` (the image taps left out: what staging the image in
+* K1 at C = 3: as committed; ``filter after the validity test`` (the 16
+  filter planes asked for only once the flow says a pixel is valid: two
+  round trips before the taps, as before); ``no taps`` (the image taps left out: what staging the image in
   shared memory could save at most).
 
 Ablations compute wrong outputs; only the committed sources are held to
@@ -32,7 +30,6 @@ their plain versions.  The card's name and power limit come first.
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -66,82 +63,7 @@ K2_ABLATIONS = {
     "box rows as wide as the box": [("  const int pitch = (bw + 31) & ~31;",
                                      "  const int pitch = bw;")],
 }
-# K1 with four adjacent pixels a thread and 16-byte loads and stores (W % 4
-# == 0 and aligned tensors only, as at these inputs): the design this PR
-# measured first and replaced
-K1_FOUR_PIXELS = r"""__global__ void __launch_bounds__(TW * TH)
-    filter_interpolate_fwd_kernel(const float* __restrict__ image,
-                                  const float* __restrict__ flow,
-                                  const float* __restrict__ filt,
-                                  float* __restrict__ out, int c, int h, int w) {
-  const int x0 = (blockIdx.x * TW + threadIdx.x) * 4;
-  const int y = blockIdx.y * TH + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x0 >= w || y >= h) return;
-  const long long hw = (long long)h * w;
-  const long long p = (long long)y * w + x0;
-  const float4 f0 = __ldg(reinterpret_cast<const float4*>(flow + 2LL * b * hw + p));
-  const float4 f1 = __ldg(reinterpret_cast<const float4*>(flow + (2LL * b + 1) * hw + p));
-  const float fx[4] = {f0.x, f0.y, f0.z, f0.w}, fy[4] = {f1.x, f1.y, f1.z, f1.w};
-  float wgt[16][4];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    const float4 q = __ldcs(reinterpret_cast<const float4*>(filt + (16LL * b + t) * hw + p));
-    wgt[t][0] = q.x; wgt[t][1] = q.y; wgt[t][2] = q.z; wgt[t][3] = q.w;
-  }
-  bool valid[4];
-  int rows[4][4], cols[4][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float x2 = (float)(x0 + k) + fx[k];
-    const float y2 = (float)y + fy[k];
-    valid[k] = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) &&
-               y2 <= (float)(h - 1) && fabsf(fx[k]) < (float)w / 2.0f &&
-               fabsf(fy[k]) < (float)h / 2.0f;
-    const float xf = floorf(x2), yf = floorf(y2);
-    const float alpha = x2 - xf, beta = y2 - yf;
-    const int ix = valid[k] ? (int)xf : x0 + k;
-    const int iy = valid[k] ? (int)yf : y;
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      rows[k][d] = min(max(iy - 1 + d, 0), h - 1) * w;
-      cols[k][d] = min(max(ix - 1 + d, 0), w - 1);
-    }
-#pragma unroll
-    for (int dj = 0; dj < 4; ++dj) {
-#pragma unroll
-      for (int di = 0; di < 4; ++di)
-        wgt[dj * 4 + di][k] = wgt[dj * 4 + di][k] * (dj >= 2 ? beta : 1.0f - beta) *
-                              (di >= 2 ? alpha : 1.0f - alpha);
-    }
-  }
-  const float* img = image + (long long)b * c * hw;
-  float* dst = out + (long long)b * c * hw;
-  for (int ch = 0; ch < c; ++ch) {
-    const float* plane = img + ch * hw;
-    float o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int dj = 0; dj < 4; ++dj) {
-#pragma unroll
-        for (int di = 0; di < 4; ++di)
-          acc += wgt[dj * 4 + di][k] * __ldg(plane + rows[k][dj] + cols[k][di]);
-      }
-      o[k] = valid[k] ? acc : __ldg(plane + p + k);
-    }
-    __stcs(reinterpret_cast<float4*>(dst + ch * hw + p), make_float4(o[0], o[1], o[2], o[3]));
-  }
-}
-"""
-K1_SOURCE = K1_SRC.read_text()
 K1_ABLATIONS = {
-    "four pixels a thread with 16-byte accesses": [
-        (K1_SOURCE[K1_SOURCE.index("__global__ void"):
-                   K1_SOURCE.index("}  // namespace")], K1_FOUR_PIXELS + "\n"),
-        ("const dim3 grid((w + TW - 1) / TW,",
-         "const dim3 grid((w + 4 * TW - 1) / (4 * TW),")],
     "filter after the validity test": [
         ("  for (int t = 0; t < 16; ++t) wgt[t] = __ldcs(filt + (16LL * b + t) * hw + p);",
          "  for (int t = 0; t < 16; ++t) wgt[t] = 0.0f;"),
@@ -153,9 +75,14 @@ K1_ABLATIONS = {
 }
 
 
+def _entry(lib, name):
+    fn = getattr(lib, name)
+    fn.argtypes = build.SIGNATURES[name]
+    return fn
+
+
 def k2(lib, flow, weight):
-    fn = lib.vfidkr_flow_project_scatter
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn = _entry(lib, "vfidkr_flow_project_scatter")
     n, _, h, w = flow.shape
     acc = torch.zeros(n, 3, h, w, device=flow.device)
     if fn(flow.data_ptr(), None if weight is None else weight.data_ptr(),
@@ -165,8 +92,7 @@ def k2(lib, flow, weight):
 
 
 def k1(lib, img, flow, filt):
-    fn = lib.vfidkr_filter_interpolate_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = _entry(lib, "vfidkr_filter_interpolate_fwd")
     out = torch.empty_like(img)
     if fn(img.data_ptr(), flow.data_ptr(), filt.data_ptr(), out.data_ptr(),
           *img.shape, torch.cuda.current_stream().cuda_stream):

@@ -34,11 +34,14 @@
 // windows share; the output streams out the same way.  An invalid pixel reads no
 // taps.  C is a runtime argument (<= 8 on the paths), a channel at a time.  What
 // is left is the taps: 16 warp-wide gathers a channel, each over about two L1
-// lines.  Four adjacent pixels a thread with 16-byte accesses was tried and is
-// slower: its 64 filter weights and 32 tap offsets take 255 registers, and its
-// taps wait in turn.  The image is not staged in shared memory, as K7 stages its
-// 196 channels: the "no taps" ablation of tools/bench_k1_k2.py bounds what that
-// could save.  The grid is 2D over the tiles, the batch on z: no 64-bit division.
+// lines.  Two or four adjacent pixels a thread, with 8- or 16-byte accesses,
+// were tried and are slower (about 13.1-13.7 and 18.5 us against 10.5-11.0 at
+// 2x3x256x448 on an H100 80GB HBM3 at 700 W): four take 255 registers for their
+// 64 filter weights and 32 tap offsets, and their taps wait in turn.  The image
+// is not staged in shared memory yet, as K7 stages its 196 channels: the "no
+// taps" ablation of tools/bench_k1_k2.py runs in 6.6 us, so the taps cost about
+// 4 us of the 10.7 and staging them is the next step for this kernel.  The grid
+// is 2D over the tiles, the batch on z: no 64-bit division.
 
 #include <cuda_runtime.h>
 
