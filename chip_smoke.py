@@ -75,10 +75,17 @@ session comes last (7), since host-bound timings read slower after one:
    against the autograd of the plain forwards, and the depth projection's
    backward against its plain version (the reference's, not autodiff) on
    the depth-weighted case, with and without the depth gradient, and on a
-   flow landing on the last row and column; each case's time per call
+   flow landing on the last row and column; K6, both uses (the depth
+   projection's without the depth gradient, as the slow-motion train step
+   runs it), also at the train steps' N = 6 on three draws of make_flow and
+   on the paths' move and on a jump whose tiles take the direct gather,
+   each with the number of its tiles that did, one case of each launched
+   twice and equal bit for bit, its yardstick one embedding_bag over each
+   pixel's four cells (for the depth projection, over the prebuilt field:
+   the four-cell sum only); each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
    its yardstick, the same six convs as bf16 cuDNN calls, K2's beside
-   index_add_; and its bound: the
+   index_add_, each yardstick's also on the device; and its bound: the
    larger of its bytes (each input read once, each output written once) at
    3.35 TB/s and its operations at 67 TFLOP/s float32 (989 TFLOP/s bf16
    for K4);
@@ -219,7 +226,7 @@ ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "flow_project_scatter_bwd": "K6",
             "filter_interpolate_ctx": "K7 C=196",
             "fused_resblocks": f"K4 {(1, 128, H, W)}",
-            "depth_flow_project_bwd": "K6 C=3 (depth)"}
+            "depth_flow_project_bwd": "K6 C=3 (depth) no depth grad"}
 
 
 def phase_device() -> torch.device:
@@ -348,15 +355,16 @@ def phase_kernels(dev: torch.device) -> dict:
     depth_inv = (1e-6 + torch.exp(-(torch.rand(N, H, W, generator=g) * 4
                                     - 1))).to(dev)
     warp_px = _landings(flow, True)
-    proj_px = _landings(flow, False)
     cases = {}
 
     def case(key, kernel, fn, plain, err, nbytes, ops, peak=F32_FLOP_S,
-             library=None, library_name=None, per_call=1):
+             library=None, library_name=None, per_call=1, direct_tiles=None):
         cases[key] = {"kernel": kernel, "fn": fn, "plain": plain, "err": err,
                       "bytes": nbytes, "ops": ops, "peak": peak,
                       "library": library, "library_name": library_name,
                       "per_call": per_call}
+        if direct_tiles is not None:
+            cases[key]["direct_tiles"] = direct_tiles
 
     # the warp: K1 on the frames; K7, and K1 for comparison, on the context;
     # K7 also on the paths' near-uniform move, across a sharp discontinuity
@@ -393,21 +401,22 @@ def phase_kernels(dev: torch.device) -> dict:
         args = (img, fl, fi)
         err = _compare(f"{kernel} {key} at {tuple(img.shape)}", fn(*args),
                        FI.filter_interpolate_plain(*args))
-        # 16 weights of 3 multiplies, then 16 multiply-adds per channel
-        case(key, kernel, lambda fn=fn, a=args: fn(*a),
-             lambda a=args: FI.filter_interpolate_plain(*a), err,
-             _nbytes(img, fl, fi, img),
-             _landings(fl, True) * (48 + 32 * img.shape[1]))
+        direct = None
         if kernel == "filter_interpolate_ctx":
             n, _, h, w = img.shape
             tiles = n * math.ceil(h / 8) * math.ceil(w / 32)
             _, direct = FI.filter_interpolate_ctx_counted(*args)
-            cases[key]["direct_tiles"] = direct
             print(f"[kernels] {key}: {direct} of {tiles} 8x32 tiles took "
                   f"the direct gather, the others staged their windows")
             if key.endswith("discontinuity") and direct == 0:
                 raise AssertionError(f"{key}: no tile took the direct "
                                      f"gather")
+        # 16 weights of 3 multiplies, then 16 multiply-adds per channel
+        case(key, kernel, lambda fn=fn, a=args: fn(*a),
+             lambda a=args: FI.filter_interpolate_plain(*a), err,
+             _nbytes(img, fl, fi, img),
+             _landings(fl, True) * (48 + 32 * img.shape[1]),
+             direct_tiles=direct)
     # K1 at the train steps' N = 6 (the batch on the grid's z up to 5), on
     # three draws of make_flow and on the paths' move: compared, not timed
     # (the in-path profiles time it at this shape)
@@ -447,10 +456,10 @@ def phase_kernels(dev: torch.device) -> dict:
              lambda f=fl, d=wt: FP.scatter4_plain(f, d), err,
              _nbytes(fl, *weights, got),
              _landings(fl, False) * (12 if wt is None else 15),
+             direct_tiles=direct,
              **({"library": index_add_call(fl, wt),
                  "library_name": "one index_add_"}
                 if key in ("K2", "K2 depth-weighted") else {}))
-        cases[key]["direct_tiles"] = direct
     acc_k = FP.scatter4(flow)
     acc_p = FP.scatter4_plain(flow)
 
@@ -521,18 +530,33 @@ def phase_kernels(dev: torch.device) -> dict:
                   out_cot)
     fp_p = _grads(lambda f: FP._count_average(FP.scatter4_plain(f)),
                   (flow,), out_cot)
-    err = _compare_grad(
+    _compare_grad(
         "flow_project_scatter_bwd (flow_project(hole_fill=False) grad->flow)",
         fp_k[0], fp_p[0])
     acc_cot = torch.randn(N, 3, H, W, generator=g).to(dev)
-    f = flow.clone().requires_grad_()
-    # reads the flow and two cotangent channels, writes the flow gradient
-    case("K6", "flow_project_scatter_bwd",
-         _grad_call(FP.scatter4, [f], acc_cot),
-         _grad_call(FP.scatter4_plain, [f], acc_cot), err,
-         _nbytes(flow, acc_cot[:, :2], flow), proj_px * 8)
-
-    _depth_bwd_cases(case, dev, flow, depth_inv, out_cot)
+    # K6 in both uses: N = 2 on make_flow (the kernels line's rows), and at
+    # the train steps' N = 6 on three draws of make_flow and on the paths'
+    # move, a jump (tiles past the shared-memory box) and the border; the
+    # new draws from their own seeds, so the other cases' inputs stay
+    g6, rng6 = torch.Generator().manual_seed(6), np.random.RandomState(6)
+    jump = _t(geo.scatter_jump_flow(rng6, N, H, W), dev)
+    border = torch.zeros(N, 2, H, W, device=dev)
+    border[:, 1] = 2.25
+    border[:, 1, H - 1] = 0.0
+    border[:, 0, :, W - 1] = 0.0
+    border[1, 0, 3, W - 2] = 1.0
+    inputs = [("", flow, acc_cot, depth_inv, out_cot)]
+    for label, fl in (("N=6 make_flow x3", flow6), ("N=6 near-uniform", uniform6),
+                      ("jump", jump), ("border", border)):
+        n = fl.shape[0]
+        inputs.append((f" {label}", fl,
+                       torch.randn(n, 3, H, W, generator=g6).to(dev),
+                       _t(geo.depth_weight(rng6, n, H, W), dev),
+                       torch.randn(n, 2, H, W, generator=g6).to(dev)))
+    for label, fl, cot3, dep, cot2 in inputs:
+        if label != " border":
+            _scatter_bwd_case(case, label, fl, cot3)
+        _depth_bwd_cases(case, label, fl, dep, cot2)
 
     # the bf16 lane's rectifier trunk: six launches a call; its yardstick is
     # the same six convs as bf16 cuDNN calls on channels-last tensors, the
@@ -592,41 +616,118 @@ def index_add_call(flow, weight):
     return lambda: acc.index_add_(1, idx, vals)
 
 
-def _depth_bwd_cases(case, dev, flow, depth_inv, cot) -> None:
+def _scatter_bwd_case(case, label, flow, cot) -> None:
+    """K6 at C = 2, ``flow_project_scatter_bwd``, against the autograd of the
+    plain scatter under the (N,3,H,W) cotangent ``cot``, within ATOL x
+    max(1, max |plain|); its direct-gather tiles printed (the jump must take
+    some); on the N = 6 draws of make_flow, launched twice and equal bit for
+    bit (no atomics).  Registers the case "K6<label>", its yardstick one
+    ``embedding_bag`` (held to the plain gradient too)."""
+    key = "K6" + label
+    got, direct = FP.scatter4_bwd_counted(flow, cot)
+    f = flow.clone().requires_grad_()
+    want = torch.autograd.grad(FP.scatter4_plain(f), f, cot)[0]
+    err = _compare_grad(f"flow_project_scatter_bwd{label} at "
+                        f"{tuple(flow.shape)}", got, want)
+    _print_direct(key, flow, direct)
+    if "make_flow x3" in label:
+        _check_repeat(key, got, FP.scatter4_bwd_counted(flow, cot)[0])
+    n, _, h, w = flow.shape
+    table = cot[:, :2].permute(0, 2, 3, 1).reshape(-1, 2).contiguous()
+    library = embedding_bag_call(flow, table, weighted=True)
+    _compare_grad(f"{key}: its embedding_bag yardstick",
+                  library().reshape(n, h, w, 2).permute(0, 3, 1, 2), want)
+    # reads the flow and two cotangent channels, writes the flow gradient
+    case(key, "flow_project_scatter_bwd", _grad_call(FP.scatter4, [f], cot),
+         _grad_call(FP.scatter4_plain, [f], cot), err,
+         _nbytes(flow, cot[:, :2], flow), _landings(flow, False) * 8,
+         library=library, library_name="one embedding_bag",
+         direct_tiles=direct)
+
+
+def _depth_bwd_cases(case, label, flow, depth_inv, cot) -> None:
     """The depth projection's backward (K6's C = 3 use): the reference's,
-    not autodiff, so held to its plain version, on the weighted sums of K2's
-    depth-weighted case and on a flow landing on the last row and column;
-    with the depth gradient and without (gdepth NULL, ``out`` unread).
-    Registers each as a ``case`` of phase_kernels."""
-    border = torch.zeros(N, 2, H, W, device=dev)
-    border[:, 1] = 2.25
-    border[:, 1, H - 1] = 0.0
-    border[:, 0, :, W - 1] = 0.0
-    border[1, 0, 3, W - 2] = 1.0
-    for key, fl, label in (("K6 C=3 (depth)", flow, "make_flow"),
-                           ("K6 C=3 (depth) border", border, "border")):
-        acc = FP.scatter4_plain(fl, depth_inv)
-        args = (fl, depth_inv, cot, acc[:, 2].contiguous(),
-                FP._count_average(acc))
-        px = _landings(fl, False)
-        for need_depth in ((True, False) if fl is flow else (True,)):
-            got = FP.depth_flow_project_bwd(*args, need_depth=need_depth)
-            want = FP.depth_flow_project_bwd_plain(*args,
-                                                   need_depth=need_depth)
-            tag = "" if need_depth else " no depth grad"
-            err = max(_compare_grad(
-                f"depth_flow_project_bwd{tag} ({label}) grad->{name}", a, b)
-                for name, a, b in zip(("flow", "depth"), got, want)
-                if b is not None)
-            # reads flow, depth, g, cnt (and out); writes gflow (and gdepth)
-            case(key + tag, "depth_flow_project_bwd",
-                 lambda a=args, nd=need_depth: FP.depth_flow_project_bwd(
-                     *a, need_depth=nd),
-                 lambda a=args, nd=need_depth:
-                 FP.depth_flow_project_bwd_plain(*a, need_depth=nd), err,
-                 _nbytes(*args[:4], fl, *((args[4], depth_inv) if need_depth
-                                          else ())),
-                 px * (42 if need_depth else 22))
+    not autodiff, so held to its plain version (within ATOL x max(1, max
+    |plain|), and reported bit-equal or not), on the weighted sums of
+    ``flow``; with the depth gradient and without (gdepth NULL, ``out``
+    unread: what the slow-motion train step runs), the latter only on the
+    N = 6 and jump inputs.  Direct-gather tiles printed (the jump must take
+    some); on the N = 6 draws of make_flow, launched twice and equal bit for
+    bit.  Registers each as a ``case`` "K6 C=3 (depth)<label>[ no depth
+    grad]"; the N = 2 make_flow case without the depth gradient is its row
+    of the kernels line, its yardstick one ``embedding_bag`` over the
+    prebuilt field (the four-cell sum only)."""
+    acc = FP.scatter4_plain(flow, depth_inv)
+    args = (flow, depth_inv, cot, acc[:, 2].contiguous(),
+            FP._count_average(acc))
+    px = _landings(flow, False)
+    n, _, h, w = flow.shape
+    depth_cases = (True, False) if label in ("", " border") else (False,)
+    for need_depth in depth_cases:
+        tag = "" if need_depth else " no depth grad"
+        key = f"K6 C=3 (depth){label}{tag}"
+        *got, direct = FP.depth_flow_project_bwd_counted(
+            *args, need_depth=need_depth)
+        want = FP.depth_flow_project_bwd_plain(*args, need_depth=need_depth)
+        err = 0.0
+        for name, a, b in zip(("flow", "depth"), got, want):
+            if b is not None:
+                err = max(err, _compare_grad(
+                    f"depth_flow_project_bwd{label}{tag} at {(n, h, w)} "
+                    f"grad->{name}", a, b))
+                print(f"[kernels] {key} grad->{name}: "
+                      f"{'' if torch.equal(a, b) else 'NOT '}equal to the "
+                      f"plain version bit for bit")
+        _print_direct(key, flow, direct)
+        if "make_flow x3" in label:
+            _check_repeat(key, got[0], FP.depth_flow_project_bwd_counted(
+                *args, need_depth=need_depth)[0])
+        library = {}
+        if key == ROW_CASE["depth_flow_project_bwd"]:
+            a = args[2] / args[3].clamp(min=1e-30).unsqueeze(1)
+            field = torch.cat([a, (a * args[4]).sum(1, keepdim=True)], 1)
+            library = {"library": embedding_bag_call(
+                flow, field.permute(0, 2, 3, 1).reshape(-1, 3).contiguous()),
+                "library_name": "one embedding_bag, the four-cell sum only"}
+        # reads flow, depth, g, cnt (and out); writes gflow (and gdepth)
+        case(key, "depth_flow_project_bwd",
+             lambda a=args, nd=need_depth: FP.depth_flow_project_bwd(
+                 *a, need_depth=nd),
+             lambda a=args, nd=need_depth:
+             FP.depth_flow_project_bwd_plain(*a, need_depth=nd), err,
+             _nbytes(*args[:4], flow, *((args[4], depth_inv) if need_depth
+                                        else ())),
+             px * (42 if need_depth else 22), direct_tiles=direct, **library)
+
+
+def _print_direct(key, flow, direct) -> None:
+    n, _, h, w = flow.shape
+    tiles = n * math.ceil(h / 8) * math.ceil(w / 32)
+    print(f"[kernels] {key}: {direct} of {tiles} 8x32 tiles gathered "
+          f"straight from memory, the others staged their cells")
+    if "jump" in key and direct == 0:
+        raise AssertionError(f"{key}: no tile took the direct gather")
+
+
+def _check_repeat(key, first, second) -> None:
+    if not torch.equal(first, second):
+        raise AssertionError(f"{key}: two launches differ")
+    print(f"[kernels] {key}: two launches equal bit for bit")
+
+
+def embedding_bag_call(flow, table, weighted=False):
+    """K6's yardstick: one ``F.embedding_bag`` (mode "sum") of the (N H W,
+    C) channels-last ``table`` over each pixel's four cells, the (N H W, 4)
+    cells of ``FP.scatter4_targets`` built beforehand; ``weighted``: with
+    the per-sample weights -valid, which gives K6's C = 2 flow gradient
+    under a cotangent whose first two channels are ``table``.  Timed only;
+    the port never calls it."""
+    idx, vals = FP.scatter4_targets(flow)
+    idx = idx.t().contiguous()
+    weights = (-vals[2]).unsqueeze(1).expand(-1, 4).contiguous() \
+        if weighted else None
+    return lambda: F.embedding_bag(idx, table, mode="sum",
+                                   per_sample_weights=weights)
 
 
 def _trunk_inputs(g: torch.Generator, shape):
@@ -1414,6 +1515,33 @@ def phase_device_times(cases, times) -> None:
         print(f"[times] {key} ({c['kernel']}): device {ms * 1000:.2f} us a "
               f"call{each} (median of {len(dev_us)} launches), bound "
               f"{bound * 1000:.2f} us: {bound / ms:.1%} of it")
+        if c["library"] is not None:
+            lib_ms, events = _device_ms_a_call(c["library"])
+            times[key]["library_device_ms"] = lib_ms
+            print(f"[times] {key}: {c['library_name']} device {lib_ms * 1000:.2f}"
+                  f" us a call ({events:g} device events a call), "
+                  f"{times[key]['library_ms'] * 1000:.2f} us a call with its "
+                  f"host (CUDA events)")
+
+
+def _device_ms_a_call(fn, calls=20) -> tuple[float, float]:
+    """The device time of one call of ``fn``, all its kernels and copies:
+    their durations summed over ``calls`` calls under torch.profiler, over
+    ``calls``; the larger of two sessions (an event the profiler drops only
+    lowers a sum).  Also the device events a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    best = (0.0, 0.0)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        total = sum(e - s0 for s0, e, _ in events) / 1000 / calls
+        best = max(best, (total, len(events) / calls))
+    return best
 
 
 def _bf16_twin(model: torch.nn.Module) -> torch.nn.Module:

@@ -328,23 +328,62 @@ def test_filter_interpolate_bwd_kernel(dev, c, need_image):
             _grads_close(name, a, b)
 
 
-@pytest.mark.parametrize("case", ["random", "border"])
-def test_flow_project_scatter_bwd_kernel(dev, case):
-    from vfidkr_torch import kernels
-    from vfidkr_torch.ops import flow_projection as FP
-    g = torch.Generator().manual_seed(4)
-    n, h, w = 2, 40, 72
+# K6's inputs, (N, H, W): each tile gathers its pixels' cells from shared
+# memory, but for the jump's tiles past the box (and some of the random
+# flow's), which gather straight from memory
+K6_CASES = {"random": (2, 40, 72), "smooth": (2, 40, 72),
+            "border": (2, 40, 72), "converging": (2, 64, 64),
+            "jump": (2, 64, 128), "border landings": (2, 64, 64),
+            "ragged 37x75": (2, 37, 75), "ragged 37x76": (2, 37, 76),
+            "N=6": (6, 64, 96), "N=6 full frame": (6, 256, 448)}
+
+
+def _k6_flow(g, case):
+    """The flow of K6's ``case``: random up to +-12 px, smooth up to +-12
+    with a patch off the frame, landings on and beyond the last row and
+    column (two of the four cells are one, added to and read back twice),
+    or tests/torch_geometry.py's (N = 6: the paths' move)."""
+    import numpy as np
+    import torch.nn.functional as F
+    n, h, w = K6_CASES[case]
     if case == "random":
-        flow = _flow(g, n, h, w, 12.0)
-    else:
-        # landings on and beyond the last row and column: two of the four
-        # targets are one cell, added to (and read back) twice
+        return _flow(g, n, h, w, 12.0)
+    if case == "smooth":
+        coarse = (torch.rand(n, 2, 3, 5, generator=g) * 2 - 1) * 12
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=True)
+        flow[0, 0, 4:8, 2:6] = -30.0                      # off the frame
+        return flow
+    if case == "border":
         flow = torch.zeros(n, 2, h, w)
         flow[:, 1] = 2.25
         flow[:, 1, h - 1] = 0.0
         flow[:, 0, :, w - 1] = 0.0
         flow[1, 0, 3, w - 2] = 1.0
-    flow = flow.to(dev)
+        return flow
+    kind = {"ragged": "smooth", "N=6": "near-uniform"}.get(
+        case.split(" ")[0], case)
+    return torch.from_numpy(_scatter_flow(np.random.RandomState(5), kind, n,
+                                          h, w))
+
+
+def _check_direct(case, direct):
+    """Only the jump (and, in part, the random flow) gathers straight from
+    memory."""
+    if case != "random":
+        assert (direct > 0) == (case == "jump"), (case, direct)
+
+
+@pytest.mark.parametrize("case", [c for c in K6_CASES if c != "smooth"])
+def test_flow_project_scatter_bwd_kernel(dev, case):
+    """K6 at C = 2 against the autograd of the plain scatter, through
+    ``scatter4``'s autograd Function (one launch) and the counted wrapper
+    (the same bits: no atomics)."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import flow_projection as FP
+    g = torch.Generator().manual_seed(4)
+    n, h, w = K6_CASES[case]
+    flow = _k6_flow(g, case).to(dev)
     cot = torch.randn(n, 3, h, w, generator=g).to(dev)
     out_cot = torch.randn(n, 2, h, w, generator=g).to(dev)
 
@@ -358,6 +397,9 @@ def test_flow_project_scatter_bwd_kernel(dev, case):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flow_project_scatter_bwd"] == before + 1
     _grads_close("scatter4", got, grads(FP.scatter4_plain, cot))
+    again, direct = FP.scatter4_bwd_counted(flow, cot)
+    assert torch.equal(again, got)
+    _check_direct(case, direct)
     proj = lambda f: FP.flow_project(f, hole_fill=False)
     want = grads(lambda f: FP._count_average(FP.scatter4_plain(f)), out_cot)
     _grads_close("flow_project", grads(proj, out_cot), want)
@@ -435,23 +477,12 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-4)
 
 
-def _depth_bwd_inputs(g, case, n=2, h=40, w=72):
-    """flow, depth, the cotangent g and the forward's cnt and unfilled out:
-    a smooth flow with landings out of the frame, or landings on and beyond
-    the last row and column (a cell read twice)."""
-    import torch.nn.functional as F
+def _depth_bwd_inputs(g, case):
+    """flow, depth, the cotangent g and the forward's cnt and unfilled out,
+    on the flow of K6's ``case``."""
     from vfidkr_torch.ops import flow_projection as FP
-    if case == "smooth":
-        coarse = (torch.rand(n, 2, 3, 5, generator=g) * 2 - 1) * 12
-        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
-                             align_corners=True)
-        flow[0, 0, 4:8, 2:6] = -30.0                      # off the frame
-    else:
-        flow = torch.zeros(n, 2, h, w)
-        flow[:, 1] = 2.25
-        flow[:, 1, h - 1] = 0.0
-        flow[:, 0, :, w - 1] = 0.0
-        flow[1, 0, 3, w - 2] = 1.0
+    n, h, w = K6_CASES[case]
+    flow = _k6_flow(g, case)
     depth = 1e-6 + torch.exp(-(torch.rand(n, h, w, generator=g) * 4 - 1))
     cot = torch.randn(n, 2, h, w, generator=g)
     acc = FP.scatter4_plain(flow, depth)
@@ -459,11 +490,12 @@ def _depth_bwd_inputs(g, case, n=2, h=40, w=72):
 
 
 @pytest.mark.parametrize("need_depth", [True, False])
-@pytest.mark.parametrize("case", ["smooth", "border"])
+@pytest.mark.parametrize("case", [c for c in K6_CASES if c != "random"])
 def test_depth_flow_project_bwd_kernel(dev, case, need_depth):
     """The depth projection's backward kernel against its plain version,
-    with the depth gradient and with it NULL; and through the autograd
-    Function of ``depth_flow_project``, one launch a backward."""
+    with the depth gradient and with it NULL; through the counted wrapper
+    (the same bits: no atomics); and through the autograd Function of
+    ``depth_flow_project``, one launch a backward."""
     from vfidkr_torch import kernels
     from vfidkr_torch.ops import flow_projection as FP
     g = torch.Generator().manual_seed(8)
@@ -479,13 +511,19 @@ def test_depth_flow_project_bwd_kernel(dev, case, need_depth):
         _grads_close("gdepth", gdepth, want_depth)
     else:
         assert gdepth is None and want_depth is None
+    again_flow, again_depth, direct = FP.depth_flow_project_bwd_counted(
+        *ins, need_depth=need_depth)
+    assert torch.equal(again_flow, gflow)
+    assert again_depth is None if gdepth is None else torch.equal(
+        again_depth, gdepth)
+    _check_direct(case, direct)
 
     flow, depth, cot = ins[:3]
     f = flow.clone().requires_grad_()
     d = depth.clone().requires_grad_(need_depth)
     FP.depth_flow_project(f, d, hole_fill=case == "smooth").backward(cot)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["depth_flow_project_bwd"] == before + 2
+    assert kernels.LAUNCHES["depth_flow_project_bwd"] == before + 3
     _grads_close("gflow via autograd", f.grad, want_flow)
     if need_depth:
         _grads_close("gdepth via autograd", d.grad, want_depth)
@@ -494,8 +532,8 @@ def test_depth_flow_project_bwd_kernel(dev, case, need_depth):
 def test_depth_flow_project_bwd_rejects_bad_inputs(dev):
     from vfidkr_torch.ops import flow_projection as FP
     g = torch.Generator().manual_seed(9)
-    flow, depth, cot, cnt, out = (t.to(dev) for t in
-                                  _depth_bwd_inputs(g, "smooth", 1, 8, 8))
+    flow, depth, cot, cnt, out = (t[:1, ..., :8, :8].contiguous().to(dev)
+                                  for t in _depth_bwd_inputs(g, "smooth"))
     with pytest.raises(TypeError):
         FP.depth_flow_project_bwd(flow.double(), depth, cot, cnt, out)
     with pytest.raises(ValueError, match="contiguous"):

@@ -1,4 +1,4 @@
-"""The plain versions of K7, K3, K2 and K1 against the JAX package, on the
+"""The plain versions of K7, K3, K2, K1 and K6 against the JAX package, on the
 inputs that reach the kernels' branches (tests/torch_geometry.py): the card
 holds each kernel to its plain version, so these pin the plain versions to
 the reference exactly where the kernels take their staged, direct-gather,
@@ -28,9 +28,19 @@ word-scan, shared-memory-box, direct-add and ragged-edge paths.
   ``filter_interpolate(impl="block")``: the |f| == W/2, H/2 and W/2 - 0.5,
   H/2 - 0.5 rows and the inclusive edges, N = 6, and ragged widths (75,
   76) at C = 1, 3 and 8.  Tolerance 1e-5 absolute and relative.
+* K6's plain versions, the flow gradient of ``scatter4`` (autograd through
+  ``scatter4_plain``) and the depth projection's backward
+  (``depth_flow_project_bwd_plain``, with and without the depth gradient),
+  against JAX's VJPs on K2's inputs and at N = 6: through
+  ``scatter4_bwd_pallas`` (interpret mode) where the frame is whole 16x32
+  bands and every pixel's cells stay in its slab, else through
+  ``_scatter4_transpose`` and ``jax.vjp`` of ``depth_flow_project``.  The
+  jump spreads some 8x32 tiles' cells past K6's shared-memory box (the
+  direct gather).  Tolerance 1e-5 absolute and relative.
 
 The port is NCHW, the JAX package NHWC.
 """
+import functools
 import re
 from pathlib import Path
 
@@ -47,7 +57,8 @@ from vfidkr_tpu.ops import filter_interpolate as jax_filter_interpolate  # noqa:
 from vfidkr_tpu.ops.filter_interpolation import _filter_interpolate_slab  # noqa: E402
 from vfidkr_tpu.ops.flow_projection import fill_holes as jax_fill_holes  # noqa: E402
 from vfidkr_tpu.ops.pallas.fillhole_kernel import fill_holes_pallas  # noqa: E402
-from vfidkr_tpu.ops.pallas.projection_band_kernel import scatter4_band_pallas  # noqa: E402
+from vfidkr_tpu.ops.pallas.projection_band_kernel import (  # noqa: E402
+    _bounds, scatter4_band_pallas)
 
 from vfidkr_torch import kernels  # noqa: E402
 from vfidkr_torch.ops import flow_projection as FP  # noqa: E402
@@ -57,6 +68,7 @@ from vfidkr_torch.ops.filter_interpolation import (  # noqa: E402
 CSRC = Path(__file__).resolve().parents[1] / "vfidkr_torch" / "csrc"
 CTX_SOURCE = CSRC / "filter_interpolate_ctx.cu"
 SCATTER_SOURCE = CSRC / "flow_project_scatter.cu"
+GATHER_SOURCE = CSRC / "flow_project_scatter_bwd.cu"
 
 
 def _hole_sums(layout):
@@ -169,17 +181,16 @@ def _scatter_case(kind):
     return make(rng, n, h, w), geo.depth_weight(rng, n, h, w), path
 
 
-def _k2_boxes(flow):
+def _tile_boxes(flow, vec):
     """Per 8x32 source tile with a valid landing: the cells of the box its
-    valid pixels' four targets cover, as K2 reduces it (widened to whole
-    groups of four columns where W % 4 == 0, and its rows padded to a
-    multiple of 32 cells)."""
+    valid pixels' four targets cover, as K2 and K6 reduce it (widened to
+    whole groups of ``vec`` columns, and its rows padded to a multiple of 32
+    cells)."""
     n, _, h, w = flow.shape
     x2 = np.arange(w)[None, None, :] + flow[:, 0]
     y2 = np.arange(h)[None, :, None] + flow[:, 1]
     valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
     ix, iy = np.floor(x2).astype(int), np.floor(y2).astype(int)
-    vec = 4 if w % 4 == 0 else 1
     cells = []
     for b in range(n):
         for y0 in range(0, h, 8):
@@ -202,7 +213,8 @@ def test_scatter_inputs_reach_both_branches():
     several sources on a cell."""
     box_max = int(re.search(r"BOX_MAX = (\d+);", SCATTER_SOURCE.read_text())[1])
     for kind in SCATTER_CASES:
-        boxes = _k2_boxes(_scatter_case(kind)[0])
+        flow = _scatter_case(kind)[0]
+        boxes = _tile_boxes(flow, 4 if flow.shape[-1] % 4 == 0 else 1)
         if kind == "jump":
             assert (boxes > box_max).any() and (boxes <= box_max).any()
         else:
@@ -278,3 +290,98 @@ def test_warp_plain_matches_jax(kind):
         assert torch.equal(got[0, :, 4], torch.from_numpy(image[0, :, 4]))
         assert not torch.equal(got[0, :, 3, :w // 2 - 1],
                                torch.from_numpy(image[0, :, 3, :w // 2 - 1]))
+
+
+# K6: K2's inputs and the paths' move at N = 6; "band" as for K2, every
+# pixel's cells (an invalid one's clamped) within scatter4_bwd_pallas's slab
+GATHER_CASES = {**SCATTER_CASES, "N=6": (
+    lambda r, n, h, w: geo.smooth_flow(r, n, h, w, 0.5, (5.3, -3.1)),
+    6, 32, 64, "band")}
+BAND = (16, 32, 32)               # band, tw, rh of scatter4_bwd_pallas
+
+
+def _gather_case(kind):
+    """flow, depth (NCHW, (N,H,W)), the (N,3,H,W) cotangent and the JAX
+    path of K6's case ``kind``."""
+    make, n, h, w, path = GATHER_CASES[kind]
+    rng = np.random.RandomState(19)
+    flow = make(rng, n, h, w)
+    depth = geo.depth_weight(rng, n, h, w)
+    return flow, depth, rng.randn(n, 3, h, w).astype(np.float32), path
+
+
+def test_gather_inputs_reach_both_branches():
+    """The jump sends some of K6's tiles to the direct gather and stages the
+    others' cells in shared memory; every other case stages every tile."""
+    box_max = int(re.search(r"BOX_MAX = (\d+);", GATHER_SOURCE.read_text())[1])
+    for kind in GATHER_CASES:
+        boxes = _tile_boxes(_gather_case(kind)[0], 1)
+        if kind == "jump":
+            assert (boxes > box_max).any() and (boxes <= box_max).any()
+        else:
+            assert (boxes <= box_max).all(), kind
+
+
+def _in_slab(prep):
+    """Every pixel's top-left cell within scatter4_bwd_pallas's slab, as
+    JAX's _scatter4_bwd requires before it takes the kernel."""
+    iy_t, ix_l = np.asarray(prep[0]), np.asarray(prep[2])
+    _, h, w = iy_t.shape
+    rv, _ = _bounds(*BAND)
+    return bool((np.abs(iy_t - np.arange(h)[:, None]) <= rv - 1).all()
+                and (np.abs(ix_l - np.arange(w)) <= BAND[2] - 1).all())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gather(kind, channels):
+    """JAX's VJP of K6's case ``kind``, under its (N,3,H,W) cotangent
+    (``channels`` = 2: of ``_scatter4`` at the (-fx, -fy, 1) values, the
+    flow gradient; 3: of the depth projection, the flow and depth
+    gradients), NHWC numpy arrays.  On the band cases through its Pallas
+    gather in interpret mode: ``_band_scatter_params`` set to 16x32 bands,
+    as on a TPU, for the backward alone."""
+    flow, depth, g, path = _gather_case(kind)
+    nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))  # noqa: E731
+    if channels == 2:
+        prep = jax.jit(jax.vmap(P._scatter_prep))(nhwc(flow))
+        res, cot = prep[:4], nhwc(g)
+        bwd = lambda r, c: P._scatter4_bwd(r, c)[4]  # noqa: E731
+    else:
+        prep = jax.jit(jax.vmap(P._depth_prep))(nhwc(flow), jnp.asarray(depth))
+        _, res = jax.jit(P._dfp_fwd, static_argnums=2)(
+            nhwc(flow), jnp.asarray(depth), False)
+        cot = nhwc(g[:, :2])
+        bwd = lambda r, c: P._dfp_bwd(False, r, c)  # noqa: E731
+    with pytest.MonkeyPatch.context() as mp:
+        if path == "band":
+            assert _in_slab(prep)
+            mp.setattr(P, "_band_scatter_params", lambda h, w, c: BAND)
+        got = jax.jit(bwd)(res, cot)
+    if channels == 2:
+        # the dvals of (-fx·valid, -fy·valid, valid): the flow gradient
+        return (-np.asarray(got)[..., :2] * np.asarray(prep[4])[..., 2:],)
+    return tuple(np.asarray(a) for a in got)
+
+
+@pytest.mark.parametrize("grad", ["C=2", "C=3", "C=3 no depth grad"])
+@pytest.mark.parametrize("kind", list(GATHER_CASES))
+def test_gather_plain_matches_jax(kind, grad):
+    """K6's plain versions through the port's autograd on the CPU, against
+    JAX's VJP of the same projection (``_jax_gather``)."""
+    flow, depth, g, _ = _gather_case(kind)
+    need_depth = grad == "C=3"
+    f = torch.from_numpy(flow).requires_grad_()
+    d = torch.from_numpy(depth).requires_grad_(need_depth)
+    kernels.reset_launches()
+    if grad == "C=2":
+        FP.scatter4(f).backward(torch.from_numpy(g))
+    else:
+        FP.depth_flow_project(f, d).backward(torch.from_numpy(g[:, :2]))
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    assert (d.grad is not None) == need_depth
+    want = _jax_gather(kind, 2 if grad == "C=2" else 3)
+    np.testing.assert_allclose(f.grad.numpy().transpose(0, 2, 3, 1), want[0],
+                               rtol=1e-5, atol=1e-5)
+    if need_depth:
+        np.testing.assert_allclose(d.grad.numpy(), want[1], rtol=1e-5,
+                                   atol=1e-5)

@@ -1,195 +1,332 @@
-// K6 flow_project_scatter_bwd: the backward of K2 flow_project_scatter (the
-// 4-neighbour scatter-add of flow projection) for NCHW float32 tensors on Hopper
-// (sm_90a); and depth_flow_project_bwd, the backward of the depth-weighted
-// projection (K2 with the weight, then the weighted average), further down.
+// K6: the transpose of K2 flow_project_scatter (the 4-neighbour scatter-add of
+// flow projection), in its two uses, for NCHW float32 tensors on Hopper
+// (sm_90a):
+//   flow_project_scatter_bwd  the flow gradient of the plain scatter (C = 2);
+//   depth_flow_project_bwd    the reference's backward of the depth-weighted
+//                             projection (K2 with the weight, then the weighted
+//                             average; C = 3), with or without the depth gradient.
 //
 // Replaces: vfidkr_tpu/ops/pallas/projection_band_kernel.py:scatter4_bwd_pallas,
 // together with the landing prep of vfidkr_tpu/ops/flow_projection.py (_landing,
-// _scatter_prep) and the chain of its caller _scatter4_bwd back to the flow.  The
-// TPU kernel writes the scatter's transpose as banded one-hot matmuls inside a
-// slab, with a whole-call lax.cond to an XLA transpose for landings beyond the
-// slab; here it is four plain loads per channel and has no slab.
+// _scatter_prep) and the chain of its callers back to the flow and depth:
+// _scatter4_bwd, and _dfp_bwd, which gathers the field
+// [g_x/cnt, g_y/cnt, (g.out)/cnt] through _gather4_batched.  The TPU kernel
+// writes the transpose as banded one-hot matmuls inside a slab, with a
+// whole-call lax.cond to an XLA transpose for landings beyond the slab; here it
+// is a gather and has no slab.
 //
-// Per source pixel (x, y) with flow (fx, fy) and the cotangent g (N,3,H,W) of the
-// scatter sums:
+// Per source pixel (x, y) with flow (fx, fy) and, for the depth projection,
+// weight d (the inverse depth):
 //   x2 = x + fx, y2 = y + fy
 //   valid = 0 <= x2 <= W-1 && 0 <= y2 <= H-1               (as in K2)
 //   ix_l = floor(x2), ix_r = min(ix_l+1, W-1), iy_t = floor(y2), iy_b = min(iy_t+1, H-1)
-//   dvals[c] = g[c, tl] + g[c, tr] + g[c, bl] + g[c, br]
-//   gflow = valid ? (-dvals[0], -dvals[1]) : (0, 0)
-// At the right and bottom border two targets are the same cell, which is then
-// counted twice, as the forward added to it twice.  The count channel (c = 2) adds
-// 1 for every valid pixel and carries no gradient to the flow, so it is not read.
+//   s = a[tl] + a[tr] + a[bl] + a[br], summed in that order (_four_neighbour_lin's)
+// where a is a per-cell term of the cotangent g:
+//   flow_project_scatter_bwd: a = (g0, g1), g (N,3,H,W) the cotangent of the
+//     scatter's sums (the count channel carries no gradient to the flow);
+//     gflow = (-s0, -s1);
+//   depth_flow_project_bwd: a = (g0, g1) / max(cnt, 1e-30), and with the depth
+//     gradient a2 = a0*out0 + a1*out1; g (N,2,H,W) the cotangent of the unfilled
+//     average out, cnt the weight sums;
+//     gflow = (-s0*d, -s1*d), gdepth = -(s0*fx + s1*fy - s2).
+// An invalid pixel writes zeros.  At the right and bottom border two cells are
+// one, read twice, as the forward added to it twice.  The reference's depth
+// gradient has (f - out) where the autodiff of the forward would give (f + out);
+// it is kept.  A hole fill, where the forward made one, takes no gradient.  The
+// term is formed with the plain version's roundings (IEEE divisions, no fused
+// multiply-adds), so the depth projection's backward equals its plain version
+// bit for bit.
 //
-// What bounds it on the H100: memory.  Per source pixel it reads 8 bytes of flow
-// and 8 cotangent values that mostly hit L1/L2 (a smooth flow sends neighbouring
-// threads to neighbouring cells), and writes 8 bytes.  Design: one thread per
-// source pixel, threads laid along x so that the flow and gradient accesses of a
-// warp are coalesced.  It is a gather, not a scatter: no atomics, so the result is
-// the same on every run.
+// What bounds it on the H100: memory, at one wave's latency.  Each input read
+// once and each output written once is 24 bytes a pixel for the plain scatter's
+// gradient (flow 8, g0 and g1 8, gflow 8), 32 for the depth projection's without
+// gdepth (flow 8, depth 4, g 8, cnt 4; gflow 8) and 44 with it (out 8, gdepth 4).
+// A gather straight from memory makes each pixel load its four cells' inputs
+// (8 to 20 scalar loads, behind the flow's) and, on a smooth flow, forms each
+// cell's quotient for each of the ~4 pixels that read it.
+// Design: a block owns a tile of 8 rows x 32 source pixels (a warp a row), on a
+// 2D grid with the batch on z (32-bit index arithmetic inside a plane).  It
+// reduces the box of cells its valid pixels' four cells cover; where that box
+// (its rows padded to whole 32-bank rows, so that a warp whose cells slant
+// across rows meets no other lane's bank) holds at most BOX_MAX cells, the block
+// loads the box's inputs row by row, coalesced, forms each cell's term once into
+// shared memory, and each thread sums its four cells from there.  No sum runs
+// over the box: a hole cell's term (g / 1e-30, inf times out = 0 is NaN) is
+// staged but never read by a valid pixel, which is one of its cells' sources.
+// A tile whose box exceeds BOX_MAX (a fold, a sharp discontinuity) gathers
+// straight from memory instead, in the same kernel, and adds one to
+// *direct_tiles where that pointer is set.  No atomics on the data: the result
+// is the same on every run.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void flow_project_scatter_bwd_kernel(const float* __restrict__ flow,
-                                                const float* __restrict__ g,
-                                                float* __restrict__ gflow, int n,
-                                                int h, int w) {
-  const long long hw = (long long)h * w;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * hw) return;
-  const long long b = idx / hw;
-  const long long p = idx - b * hw;
-  const int y = (int)(p / w);
-  const int x = (int)(p - (long long)y * w);
+constexpr int TW = 32;              // tile columns: a warp
+constexpr int TH = 8;               // tile rows: a warp each
+constexpr int THREADS = TW * TH;
+constexpr int BOX_MAX = 2048;       // largest box staged in shared memory, in cells
+constexpr int UNROLL = 4;           // box cells a thread stages at once
+constexpr unsigned FULL = 0xffffffffu;
 
-  const float fx = flow[(2 * b) * hw + p];
-  const float fy = flow[(2 * b + 1) * hw + p];
-  const float x2 = (float)x + fx;
-  const float y2 = (float)y + fy;
-  float* gf = gflow + (2 * b) * hw + p;
-  if (!(x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) && y2 <= (float)(h - 1))) {
-    gf[0] = 0.0f;
-    gf[hw] = 0.0f;
-    return;
+// The per-cell term a source pixel sums, for MODE
+//   0 flow_project_scatter_bwd, 1 depth_flow_project_bwd without gdepth,
+//   2 depth_flow_project_bwd with gdepth;
+// load() reads a cell's R inputs, term() forms its C channels from them.
+template <int MODE>
+struct Field {
+  static constexpr int C = MODE == 2 ? 3 : 2;
+  static constexpr int R = MODE == 0 ? 2 : (MODE == 1 ? 3 : 5);
+  const float* g0;     // the cotangent's channels 0 and 1, one plane
+  const float* g1;
+  const float* cnt;    // the weight sums (MODE 1, 2)
+  const float* o0;     // the unfilled average (MODE 2)
+  const float* o1;
+
+  __device__ __forceinline__ void load(int c, float (&v)[R]) const {
+    v[0] = __ldg(g0 + c);
+    v[1] = __ldg(g1 + c);
+    if constexpr (MODE >= 1) v[2] = __ldg(cnt + c);
+    if constexpr (MODE == 2) {
+      v[3] = __ldg(o0 + c);
+      v[4] = __ldg(o1 + c);
+    }
   }
 
-  const int ix_l = (int)floorf(x2);
-  const int iy_t = (int)floorf(y2);
-  const int ix_r = min(ix_l + 1, w - 1);
-  const int iy_b = min(iy_t + 1, h - 1);
-  const int tl = iy_t * w + ix_l;
-  const int tr = iy_t * w + ix_r;
-  const int bl = iy_b * w + ix_l;
-  const int br = iy_b * w + ix_r;
+  __device__ static __forceinline__ void term(const float (&v)[R], float (&t)[C]) {
+    if constexpr (MODE == 0) {
+      t[0] = v[0];
+      t[1] = v[1];
+    } else {
+      const float den = fmaxf(v[2], 1e-30f);
+      t[0] = v[0] / den;
+      t[1] = v[1] / den;
+      if constexpr (MODE == 2) t[2] = __fadd_rn(__fmul_rn(t[0], v[3]), __fmul_rn(t[1], v[4]));
+    }
+  }
+};
 
-  const float* gx = g + (3 * b) * hw;
-  const float* gy = gx + hw;
-  gf[0] = -(gx[tl] + gx[tr] + gx[bl] + gx[br]);
-  gf[hw] = -(gy[tl] + gy[tr] + gy[bl] + gy[br]);
+template <int MODE>
+__device__ __forceinline__ void gather4_tile(const float* __restrict__ flow,
+                                             const float* __restrict__ depth,
+                                             Field<MODE> f, float* __restrict__ gflow,
+                                             float* __restrict__ gdepth, int h, int w,
+                                             int* direct_tiles) {
+  constexpr int C = Field<MODE>::C;
+  constexpr int R = Field<MODE>::R;
+  __shared__ float box[C][BOX_MAX];
+  __shared__ unsigned red[4][TH];
+
+  const int lane = threadIdx.x;
+  const int row = threadIdx.y;
+  const int tid = row * TW + lane;
+  const int x = blockIdx.x * TW + lane;
+  const int y = blockIdx.y * TH + row;
+  const int b = blockIdx.z;
+  const int hw = h * w;
+  const int p = y * w + x;
+  const bool inside = x < w && y < h;
+
+  bool valid = false;
+  float fx = 0.0f, fy = 0.0f, d = 1.0f;
+  int ix_l = 0, ix_r = 0, iy_t = 0, iy_b = 0;
+  if (inside) {
+    fx = flow[2LL * b * hw + p];
+    fy = flow[(2LL * b + 1) * hw + p];
+    if constexpr (MODE >= 1) d = depth[(long long)b * hw + p];
+    const float x2 = (float)x + fx;
+    const float y2 = (float)y + fy;
+    valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) && y2 <= (float)(h - 1);
+    if (valid) {
+      ix_l = (int)floorf(x2);
+      iy_t = (int)floorf(y2);
+      ix_r = min(ix_l + 1, w - 1);
+      iy_b = min(iy_t + 1, h - 1);
+    }
+  }
+  float* gf = gflow + 2LL * b * hw + p;
+  float* gd = MODE == 2 ? gdepth + (long long)b * hw + p : nullptr;
+
+  // the box of cells that the valid pixels' four cells cover
+  const unsigned r[4] = {
+      __reduce_min_sync(FULL, valid ? (unsigned)ix_l : UINT_MAX),
+      __reduce_max_sync(FULL, valid ? (unsigned)ix_r : 0u),
+      __reduce_min_sync(FULL, valid ? (unsigned)iy_t : UINT_MAX),
+      __reduce_max_sync(FULL, valid ? (unsigned)iy_b : 0u)};
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[i][row] = r[i];
+  }
+  __syncthreads();
+  unsigned m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = red[i][0];
+#pragma unroll
+    for (int j = 1; j < TH; ++j)
+      m[i] = (i == 0 || i == 2) ? min(m[i], red[i][j]) : max(m[i], red[i][j]);
+  }
+  const int bx0 = (int)m[0];
+  const int by0 = (int)m[2];
+  const int bw = (int)m[1] - bx0 + 1;
+  const int bh = (int)m[3] - by0 + 1;
+  // a box row takes a whole number of 32-word rows of banks
+  const int pitch = (bw + 31) & ~31;
+
+  float s[C];
+  if (m[0] == UINT_MAX) {
+    // no valid pixel in the tile
+  } else if ((long long)pitch * bh > BOX_MAX) {
+    // the direct branch: each pixel's four cells straight from memory
+    if (direct_tiles != nullptr && tid == 0) atomicAdd(direct_tiles, 1);
+    if (valid) {
+      const int cells[4] = {iy_t * w + ix_l, iy_t * w + ix_r, iy_b * w + ix_l,
+                            iy_b * w + ix_r};
+      float v[4][R];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f.load(cells[k], v[k]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) s[c] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float t[C];
+        Field<MODE>::term(v[k], t);
+#pragma unroll
+        for (int c = 0; c < C; ++c) s[c] += t[c];
+      }
+    }
+  } else {
+    // the staged branch: each box cell's inputs loaded once, row by row (a
+    // cell's row by a multiply-high, exact for e < 2^32 / bw), UNROLL cells' loads
+    // in flight at once, its term formed once
+    const int cells = bw * bh;
+    const unsigned long long inv_bw = 0x100000000ull / (unsigned)bw + 1;
+    for (int e0 = tid; e0 < cells; e0 += UNROLL * THREADS) {
+      float v[UNROLL][R];
+#pragma unroll
+      for (int i = 0; i < UNROLL; ++i) {
+        const int e = e0 + i * THREADS;
+        if (e < cells) {
+          const int rr = (int)((e * inv_bw) >> 32);
+          f.load((by0 + rr) * w + bx0 + e - rr * bw, v[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < UNROLL; ++i) {
+        const int e = e0 + i * THREADS;
+        if (e < cells) {
+          const int rr = (int)((e * inv_bw) >> 32);
+          const int at = rr * pitch + e - rr * bw;
+          float t[C];
+          Field<MODE>::term(v[i], t);
+#pragma unroll
+          for (int c = 0; c < C; ++c) box[c][at] = t[c];
+        }
+      }
+    }
+    __syncthreads();
+    if (valid) {
+      const int t0 = (iy_t - by0) * pitch - bx0;
+      const int t1 = (iy_b - by0) * pitch - bx0;
+      const int at[4] = {t0 + ix_l, t0 + ix_r, t1 + ix_l, t1 + ix_r};
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        s[c] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[c] += box[c][at[k]];
+      }
+    }
+  }
+
+  if (!inside) return;
+  if (!valid) {
+    gf[0] = 0.0f;
+    gf[hw] = 0.0f;
+    if constexpr (MODE == 2) *gd = 0.0f;
+    return;
+  }
+  if constexpr (MODE == 0) {
+    gf[0] = -s[0];
+    gf[hw] = -s[1];
+  } else {
+    gf[0] = -s[0] * d;
+    gf[hw] = -s[1] * d;
+    if constexpr (MODE == 2)
+      *gd = -__fsub_rn(__fadd_rn(__fmul_rn(s[0], fx), __fmul_rn(s[1], fy)), s[2]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    flow_project_scatter_bwd_kernel(const float* __restrict__ flow,
+                                    const float* __restrict__ g,
+                                    float* __restrict__ gflow, int h, int w,
+                                    int* direct_tiles) {
+  const long long hw = (long long)h * w;
+  const float* g0 = g + 3LL * blockIdx.z * hw;
+  gather4_tile<0>(flow, nullptr, Field<0>{g0, g0 + hw, nullptr, nullptr, nullptr},
+                  gflow, nullptr, h, w, direct_tiles);
+}
+
+template <bool kDepth>
+__global__ void __launch_bounds__(THREADS)
+    depth_flow_project_bwd_kernel(const float* __restrict__ flow,
+                                  const float* __restrict__ depth,
+                                  const float* __restrict__ g,
+                                  const float* __restrict__ cnt,
+                                  const float* __restrict__ out,
+                                  float* __restrict__ gflow,
+                                  float* __restrict__ gdepth, int h, int w,
+                                  int* direct_tiles) {
+  const long long hw = (long long)h * w;
+  const float* g0 = g + 2LL * blockIdx.z * hw;
+  const float* cn = cnt + blockIdx.z * hw;
+  if constexpr (kDepth) {
+    const float* o0 = out + 2LL * blockIdx.z * hw;
+    gather4_tile<2>(flow, depth, Field<2>{g0, g0 + hw, cn, o0, o0 + hw}, gflow, gdepth,
+                    h, w, direct_tiles);
+  } else {
+    gather4_tile<1>(flow, depth, Field<1>{g0, g0 + hw, cn, nullptr, nullptr}, gflow,
+                    nullptr, h, w, direct_tiles);
+  }
+}
+
+bool grid_fits(int n, int h, int w) {
+  return (h + TH - 1) / TH <= 65535 && n <= 65535 && (long long)h * w <= INT_MAX;
 }
 
 }  // namespace
 
 // g (N,3,H,W) is the cotangent of flow_project_scatter's sums; gflow (N,2,H,W) is
-// written in full.
+// written in full.  direct_tiles (or NULL): gains the number of 8x32 tiles that
+// gathered straight from memory.
 extern "C" int vfidkr_flow_project_scatter_bwd(const float* flow, const float* g,
                                                float* gflow, int n, int h, int w,
+                                               int* direct_tiles,
                                                cudaStream_t stream) {
-  const long long total = (long long)n * h * w;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  flow_project_scatter_bwd_kernel<<<blocks, threads, 0, stream>>>(flow, g, gflow, n,
-                                                                   h, w);
+  if (!grid_fits(n, h, w)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  flow_project_scatter_bwd_kernel<<<grid, dim3(TW, TH), 0, stream>>>(flow, g, gflow, h,
+                                                                     w, direct_tiles);
   return (int)cudaGetLastError();
 }
 
-// depth_flow_project_bwd: the reference's backward of the depth-weighted flow
-// projection (depthflowprojection_cuda_kernel.cu), the 3-channel use of the TPU
-// kernel.
-//
-// Replaces: vfidkr_tpu/ops/pallas/projection_band_kernel.py:scatter4_bwd_pallas
-// at C = 3, as vfidkr_tpu/ops/flow_projection.py:_dfp_bwd calls it through
-// _gather4_batched on the field [g_x/cnt, g_y/cnt, (g.out)/cnt], with the
-// combination that follows.  Here the field is never written out: each source
-// pixel forms it at its four target cells from g, cnt and out.
-//
-// Per source pixel (x, y) with flow (fx, fy) and weight d (the inverse depth),
-// landing and cells as in the kernel above; for the cells n = tl, tr, bl, br, in
-// that order (_four_neighbour_lin's):
-//   a_n = g[n] / max(cnt[n], 1e-30)
-//   s0 = sum a_n.x,  s1 = sum a_n.y,  s2 = sum (a_n.x*out_n.x + a_n.y*out_n.y)
-//   gflow  = (-s0*d, -s1*d)
-//   gdepth = -(s0*fx + s1*fy - s2)
-// The reference's depth gradient has (f - out) where the autodiff of the forward
-// would give (f + out); it is kept.  g is the cotangent of the unfilled average
-// `out`: a hole fill, where the forward made one, takes no gradient.  An invalid
-// pixel writes zeros and forms no quotient (the hole cells' g / 1e-30 never meets
-// a 0 weight).  A valid pixel's four cells hold at least its own d > 0.
-//
-// What bounds it on the H100: memory.  Each input read once and each output
-// written once is 44 bytes a pixel (flow 8, depth 4, g 8, cnt 4, out 8; gflow 8,
-// gdepth 4); without gdepth `out` is not needed and it is 32.  Design: one thread
-// per source pixel, threads along x, as K6; the cells' reads mostly hit L1/L2.  A
-// gather, no atomics: the same result on every run.
-
-namespace {
-
-template <bool kDepth>
-__global__ void depth_flow_project_bwd_kernel(
-    const float* __restrict__ flow, const float* __restrict__ depth,
-    const float* __restrict__ g, const float* __restrict__ cnt,
-    const float* __restrict__ out, float* __restrict__ gflow,
-    float* __restrict__ gdepth, int n, int h, int w) {
-  const long long hw = (long long)h * w;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * hw) return;
-  const long long b = idx / hw;
-  const long long p = idx - b * hw;
-  const int y = (int)(p / w);
-  const int x = (int)(p - (long long)y * w);
-
-  const float fx = flow[(2 * b) * hw + p];
-  const float fy = flow[(2 * b + 1) * hw + p];
-  const float x2 = (float)x + fx;
-  const float y2 = (float)y + fy;
-  float* gf = gflow + (2 * b) * hw + p;
-  if (!(x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) && y2 <= (float)(h - 1))) {
-    gf[0] = 0.0f;
-    gf[hw] = 0.0f;
-    if (kDepth) gdepth[b * hw + p] = 0.0f;
-    return;
-  }
-
-  const int ix_l = (int)floorf(x2);
-  const int iy_t = (int)floorf(y2);
-  const int ix_r = min(ix_l + 1, w - 1);
-  const int iy_b = min(iy_t + 1, h - 1);
-  const int cells[4] = {iy_t * w + ix_l, iy_t * w + ix_r, iy_b * w + ix_l,
-                        iy_b * w + ix_r};
-
-  const float* gx = g + (2 * b) * hw;
-  const float* gy = gx + hw;
-  const float* cn = cnt + b * hw;
-  const float* ox = out + (2 * b) * hw;
-  const float* oy = ox + hw;
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int c = cells[k];
-    const float den = fmaxf(cn[c], 1e-30f);
-    const float ax = gx[c] / den;
-    const float ay = gy[c] / den;
-    s0 += ax;
-    s1 += ay;
-    if (kDepth) s2 += ax * ox[c] + ay * oy[c];
-  }
-  const float d = depth[b * hw + p];
-  gf[0] = -s0 * d;
-  gf[hw] = -s1 * d;
-  if (kDepth) gdepth[b * hw + p] = -(s0 * fx + s1 * fy - s2);
-}
-
-}  // namespace
-
 // flow, g, out and gflow (N,2,H,W); depth, cnt and gdepth (N,H,W).  gflow is
 // written in full; gdepth likewise, or it is NULL and the depth gradient (and
-// `out`, which may then be NULL too) is skipped.
+// `out`, which may then be NULL too) is skipped.  direct_tiles as above.
 extern "C" int vfidkr_depth_flow_project_bwd(const float* flow, const float* depth,
                                              const float* g, const float* cnt,
                                              const float* out, float* gflow,
                                              float* gdepth, int n, int h, int w,
-                                             cudaStream_t stream) {
-  const long long total = (long long)n * h * w;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+                                             int* direct_tiles, cudaStream_t stream) {
+  if (!grid_fits(n, h, w)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   if (gdepth != nullptr) {
-    depth_flow_project_bwd_kernel<true><<<blocks, threads, 0, stream>>>(
-        flow, depth, g, cnt, out, gflow, gdepth, n, h, w);
+    depth_flow_project_bwd_kernel<true><<<grid, dim3(TW, TH), 0, stream>>>(
+        flow, depth, g, cnt, out, gflow, gdepth, h, w, direct_tiles);
   } else {
-    depth_flow_project_bwd_kernel<false><<<blocks, threads, 0, stream>>>(
-        flow, depth, g, cnt, out, gflow, gdepth, n, h, w);
+    depth_flow_project_bwd_kernel<false><<<grid, dim3(TW, TH), 0, stream>>>(
+        flow, depth, g, cnt, out, gflow, gdepth, h, w, direct_tiles);
   }
   return (int)cudaGetLastError();
 }
