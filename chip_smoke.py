@@ -78,9 +78,8 @@ session comes last (7), since host-bound timings read slower after one:
    flow landing on the last row and column; K6, both uses (the depth
    projection's without the depth gradient, as the slow-motion train step
    runs it), also at the train steps' N = 6 on three draws of make_flow and
-   on the paths' move and on a jump whose tiles take the direct gather,
-   each with the number of its tiles that did, one case of each launched
-   twice and equal bit for bit, its yardstick one embedding_bag over each
+   on the paths' move and on a jump, one case of each launched twice and
+   equal bit for bit, its yardstick one embedding_bag over each
    pixel's four cells (for the depth projection, over the prebuilt field:
    the four-cell sum only); each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
@@ -92,7 +91,7 @@ session comes last (7), since host-bound timings read slower after one:
 7. profile: where the slow-motion forward's, the two train steps' and the
    bf16 lane's time goes (each stage alone, the Adamax step, torch.profiler
    over whole runs: busy share, the largest device kernels), and each kernel
-   case's device time per call;
+   case's (and its yardstick's) device time per call;
 8. one JSON line of the kernels, with each kernel's launches in one run of
    each path, then the result line.
 """
@@ -358,13 +357,11 @@ def phase_kernels(dev: torch.device) -> dict:
     cases = {}
 
     def case(key, kernel, fn, plain, err, nbytes, ops, peak=F32_FLOP_S,
-             library=None, library_name=None, per_call=1, direct_tiles=None):
+             library=None, library_name=None, per_call=1):
         cases[key] = {"kernel": kernel, "fn": fn, "plain": plain, "err": err,
                       "bytes": nbytes, "ops": ops, "peak": peak,
                       "library": library, "library_name": library_name,
                       "per_call": per_call}
-        if direct_tiles is not None:
-            cases[key]["direct_tiles"] = direct_tiles
 
     # the warp: K1 on the frames; K7, and K1 for comparison, on the context;
     # K7 also on the paths' near-uniform move, across a sharp discontinuity
@@ -401,22 +398,21 @@ def phase_kernels(dev: torch.device) -> dict:
         args = (img, fl, fi)
         err = _compare(f"{kernel} {key} at {tuple(img.shape)}", fn(*args),
                        FI.filter_interpolate_plain(*args))
-        direct = None
+        # 16 weights of 3 multiplies, then 16 multiply-adds per channel
+        case(key, kernel, lambda fn=fn, a=args: fn(*a),
+             lambda a=args: FI.filter_interpolate_plain(*a), err,
+             _nbytes(img, fl, fi, img),
+             _landings(fl, True) * (48 + 32 * img.shape[1]))
         if kernel == "filter_interpolate_ctx":
             n, _, h, w = img.shape
             tiles = n * math.ceil(h / 8) * math.ceil(w / 32)
             _, direct = FI.filter_interpolate_ctx_counted(*args)
+            cases[key]["direct_tiles"] = direct
             print(f"[kernels] {key}: {direct} of {tiles} 8x32 tiles took "
                   f"the direct gather, the others staged their windows")
             if key.endswith("discontinuity") and direct == 0:
                 raise AssertionError(f"{key}: no tile took the direct "
                                      f"gather")
-        # 16 weights of 3 multiplies, then 16 multiply-adds per channel
-        case(key, kernel, lambda fn=fn, a=args: fn(*a),
-             lambda a=args: FI.filter_interpolate_plain(*a), err,
-             _nbytes(img, fl, fi, img),
-             _landings(fl, True) * (48 + 32 * img.shape[1]),
-             direct_tiles=direct)
     # K1 at the train steps' N = 6 (the batch on the grid's z up to 5), on
     # three draws of make_flow and on the paths' move: compared, not timed
     # (the in-path profiles time it at this shape)
@@ -456,10 +452,10 @@ def phase_kernels(dev: torch.device) -> dict:
              lambda f=fl, d=wt: FP.scatter4_plain(f, d), err,
              _nbytes(fl, *weights, got),
              _landings(fl, False) * (12 if wt is None else 15),
-             direct_tiles=direct,
              **({"library": index_add_call(fl, wt),
                  "library_name": "one index_add_"}
                 if key in ("K2", "K2 depth-weighted") else {}))
+        cases[key]["direct_tiles"] = direct
     acc_k = FP.scatter4(flow)
     acc_p = FP.scatter4_plain(flow)
 
@@ -536,8 +532,9 @@ def phase_kernels(dev: torch.device) -> dict:
     acc_cot = torch.randn(N, 3, H, W, generator=g).to(dev)
     # K6 in both uses: N = 2 on make_flow (the kernels line's rows), and at
     # the train steps' N = 6 on three draws of make_flow and on the paths'
-    # move, a jump (tiles past the shared-memory box) and the border; the
-    # new draws from their own seeds, so the other cases' inputs stay
+    # move, a jump (landings 44 px off on one side of a line) and the
+    # border; the new draws from their own seeds, so the other cases'
+    # inputs stay
     g6, rng6 = torch.Generator().manual_seed(6), np.random.RandomState(6)
     jump = _t(geo.scatter_jump_flow(rng6, N, H, W), dev)
     border = torch.zeros(N, 2, H, W, device=dev)
@@ -619,44 +616,41 @@ def index_add_call(flow, weight):
 def _scatter_bwd_case(case, label, flow, cot) -> None:
     """K6 at C = 2, ``flow_project_scatter_bwd``, against the autograd of the
     plain scatter under the (N,3,H,W) cotangent ``cot``, within ATOL x
-    max(1, max |plain|); its direct-gather tiles printed (the jump must take
-    some); on the N = 6 draws of make_flow, launched twice and equal bit for
-    bit (no atomics).  Registers the case "K6<label>", its yardstick one
-    ``embedding_bag`` (held to the plain gradient too)."""
+    max(1, max |plain|); on the N = 6 draws of make_flow, launched twice and
+    equal bit for bit (no atomics).  Registers the case "K6<label>", its
+    yardstick one ``embedding_bag`` (held to the plain gradient too)."""
     key = "K6" + label
-    got, direct = FP.scatter4_bwd_counted(flow, cot)
     f = flow.clone().requires_grad_()
+    kernel = _grad_call(FP.scatter4, [f], cot)
+    got = kernel()[0]
     want = torch.autograd.grad(FP.scatter4_plain(f), f, cot)[0]
     err = _compare_grad(f"flow_project_scatter_bwd{label} at "
                         f"{tuple(flow.shape)}", got, want)
-    _print_direct(key, flow, direct)
     if "make_flow x3" in label:
-        _check_repeat(key, got, FP.scatter4_bwd_counted(flow, cot)[0])
+        _check_repeat(key, got, kernel()[0])
     n, _, h, w = flow.shape
     table = cot[:, :2].permute(0, 2, 3, 1).reshape(-1, 2).contiguous()
     library = embedding_bag_call(flow, table, weighted=True)
     _compare_grad(f"{key}: its embedding_bag yardstick",
                   library().reshape(n, h, w, 2).permute(0, 3, 1, 2), want)
     # reads the flow and two cotangent channels, writes the flow gradient
-    case(key, "flow_project_scatter_bwd", _grad_call(FP.scatter4, [f], cot),
+    case(key, "flow_project_scatter_bwd", kernel,
          _grad_call(FP.scatter4_plain, [f], cot), err,
          _nbytes(flow, cot[:, :2], flow), _landings(flow, False) * 8,
-         library=library, library_name="one embedding_bag",
-         direct_tiles=direct)
+         library=library, library_name="one embedding_bag")
 
 
 def _depth_bwd_cases(case, label, flow, depth_inv, cot) -> None:
     """The depth projection's backward (K6's C = 3 use): the reference's,
     not autodiff, so held to its plain version (within ATOL x max(1, max
-    |plain|), and reported bit-equal or not), on the weighted sums of
+    |plain|)), on the weighted sums of
     ``flow``; with the depth gradient and without (gdepth NULL, ``out``
     unread: what the slow-motion train step runs), the latter only on the
-    N = 6 and jump inputs.  Direct-gather tiles printed (the jump must take
-    some); on the N = 6 draws of make_flow, launched twice and equal bit for
-    bit.  Registers each as a ``case`` "K6 C=3 (depth)<label>[ no depth
-    grad]"; the N = 2 make_flow case without the depth gradient is its row
-    of the kernels line, its yardstick one ``embedding_bag`` over the
-    prebuilt field (the four-cell sum only)."""
+    N = 6 and jump inputs; on the N = 6 draws of make_flow, launched twice
+    and equal bit for bit.  Registers each as a ``case`` "K6 C=3
+    (depth)<label>[ no depth grad]"; the N = 2 make_flow case without the
+    depth gradient is its row of the kernels line, its yardstick one
+    ``embedding_bag`` over the prebuilt field (the four-cell sum only)."""
     acc = FP.scatter4_plain(flow, depth_inv)
     args = (flow, depth_inv, cot, acc[:, 2].contiguous(),
             FP._count_average(acc))
@@ -666,8 +660,7 @@ def _depth_bwd_cases(case, label, flow, depth_inv, cot) -> None:
     for need_depth in depth_cases:
         tag = "" if need_depth else " no depth grad"
         key = f"K6 C=3 (depth){label}{tag}"
-        *got, direct = FP.depth_flow_project_bwd_counted(
-            *args, need_depth=need_depth)
+        got = FP.depth_flow_project_bwd(*args, need_depth=need_depth)
         want = FP.depth_flow_project_bwd_plain(*args, need_depth=need_depth)
         err = 0.0
         for name, a, b in zip(("flow", "depth"), got, want):
@@ -675,12 +668,8 @@ def _depth_bwd_cases(case, label, flow, depth_inv, cot) -> None:
                 err = max(err, _compare_grad(
                     f"depth_flow_project_bwd{label}{tag} at {(n, h, w)} "
                     f"grad->{name}", a, b))
-                print(f"[kernels] {key} grad->{name}: "
-                      f"{'' if torch.equal(a, b) else 'NOT '}equal to the "
-                      f"plain version bit for bit")
-        _print_direct(key, flow, direct)
         if "make_flow x3" in label:
-            _check_repeat(key, got[0], FP.depth_flow_project_bwd_counted(
+            _check_repeat(key, got[0], FP.depth_flow_project_bwd(
                 *args, need_depth=need_depth)[0])
         library = {}
         if key == ROW_CASE["depth_flow_project_bwd"]:
@@ -697,16 +686,7 @@ def _depth_bwd_cases(case, label, flow, depth_inv, cot) -> None:
              FP.depth_flow_project_bwd_plain(*a, need_depth=nd), err,
              _nbytes(*args[:4], flow, *((args[4], depth_inv) if need_depth
                                         else ())),
-             px * (42 if need_depth else 22), direct_tiles=direct, **library)
-
-
-def _print_direct(key, flow, direct) -> None:
-    n, _, h, w = flow.shape
-    tiles = n * math.ceil(h / 8) * math.ceil(w / 32)
-    print(f"[kernels] {key}: {direct} of {tiles} 8x32 tiles gathered "
-          f"straight from memory, the others staged their cells")
-    if "jump" in key and direct == 0:
-        raise AssertionError(f"{key}: no tile took the direct gather")
+             px * (42 if need_depth else 22), **library)
 
 
 def _check_repeat(key, first, second) -> None:
@@ -1519,29 +1499,35 @@ def phase_device_times(cases, times) -> None:
             lib_ms, events = _device_ms_a_call(c["library"])
             times[key]["library_device_ms"] = lib_ms
             print(f"[times] {key}: {c['library_name']} device {lib_ms * 1000:.2f}"
-                  f" us a call ({events:g} device events a call), "
+                  f" us a call ({events} device events a call), "
                   f"{times[key]['library_ms'] * 1000:.2f} us a call with its "
                   f"host (CUDA events)")
 
 
-def _device_ms_a_call(fn, calls=20) -> tuple[float, float]:
-    """The device time of one call of ``fn``, all its kernels and copies:
-    their durations summed over ``calls`` calls under torch.profiler, over
-    ``calls``; the larger of two sessions (an event the profiler drops only
-    lowers a sum).  Also the device events a call."""
+def _device_ms_a_call(fn, calls=20) -> tuple[float, int]:
+    """The device time of one call of ``fn``, all its kernels and copies,
+    under torch.profiler: three sessions of ``calls`` calls; the events of a
+    call from the fullest session, rounded up (the profiler may drop a
+    session's first events, now and then all of them), times the largest
+    mean event of the sessions that kept at least half as many.  Also the
+    events a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    best = (0.0, 0.0)
-    for _ in range(2):
+    sessions = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = _device_events(prof)
-        total = sum(e - s0 for s0, e, _ in events) / 1000 / calls
-        best = max(best, (total, len(events) / calls))
-    return best
+        sessions.append([e - s0 for s0, e, _ in _device_events(prof)])
+    most = max(len(d) for d in sessions)
+    if 2 * most < calls:
+        raise AssertionError(f"torch.profiler recorded {most} device events "
+                             f"in {calls} calls")
+    per_call = math.ceil(most / calls)
+    mean = max(sum(d) / len(d) for d in sessions if 2 * len(d) >= most)
+    return mean * per_call / 1000, per_call
 
 
 def _bf16_twin(model: torch.nn.Module) -> torch.nn.Module:

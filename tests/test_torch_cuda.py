@@ -328,9 +328,9 @@ def test_filter_interpolate_bwd_kernel(dev, c, need_image):
             _grads_close(name, a, b)
 
 
-# K6's inputs, (N, H, W): each tile gathers its pixels' cells from shared
-# memory, but for the jump's tiles past the box (and some of the random
-# flow's), which gather straight from memory
+# K6's inputs, (N, H, W): random and smooth flows, landings on the last row
+# and column, tests/torch_geometry.py's flows (several pixels a cell, a jump,
+# the border, ragged frames), and the paths' move at the train steps' N = 6
 K6_CASES = {"random": (2, 40, 72), "smooth": (2, 40, 72),
             "border": (2, 40, 72), "converging": (2, 64, 64),
             "jump": (2, 64, 128), "border landings": (2, 64, 64),
@@ -367,18 +367,11 @@ def _k6_flow(g, case):
                                           h, w))
 
 
-def _check_direct(case, direct):
-    """Only the jump (and, in part, the random flow) gathers straight from
-    memory."""
-    if case != "random":
-        assert (direct > 0) == (case == "jump"), (case, direct)
-
-
 @pytest.mark.parametrize("case", [c for c in K6_CASES if c != "smooth"])
 def test_flow_project_scatter_bwd_kernel(dev, case):
     """K6 at C = 2 against the autograd of the plain scatter, through
-    ``scatter4``'s autograd Function (one launch) and the counted wrapper
-    (the same bits: no atomics)."""
+    ``scatter4``'s autograd Function (one launch; a second gives the same
+    bits: no atomics)."""
     from vfidkr_torch import kernels
     from vfidkr_torch.ops import flow_projection as FP
     g = torch.Generator().manual_seed(4)
@@ -397,9 +390,7 @@ def test_flow_project_scatter_bwd_kernel(dev, case):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flow_project_scatter_bwd"] == before + 1
     _grads_close("scatter4", got, grads(FP.scatter4_plain, cot))
-    again, direct = FP.scatter4_bwd_counted(flow, cot)
-    assert torch.equal(again, got)
-    _check_direct(case, direct)
+    assert torch.equal(grads(FP.scatter4, cot), got)
     proj = lambda f: FP.flow_project(f, hole_fill=False)
     want = grads(lambda f: FP._count_average(FP.scatter4_plain(f)), out_cot)
     _grads_close("flow_project", grads(proj, out_cot), want)
@@ -493,8 +484,8 @@ def _depth_bwd_inputs(g, case):
 @pytest.mark.parametrize("case", [c for c in K6_CASES if c != "random"])
 def test_depth_flow_project_bwd_kernel(dev, case, need_depth):
     """The depth projection's backward kernel against its plain version,
-    with the depth gradient and with it NULL; through the counted wrapper
-    (the same bits: no atomics); and through the autograd Function of
+    with the depth gradient and with it NULL (a second launch gives the
+    same bits: no atomics); and through the autograd Function of
     ``depth_flow_project``, one launch a backward."""
     from vfidkr_torch import kernels
     from vfidkr_torch.ops import flow_projection as FP
@@ -511,12 +502,10 @@ def test_depth_flow_project_bwd_kernel(dev, case, need_depth):
         _grads_close("gdepth", gdepth, want_depth)
     else:
         assert gdepth is None and want_depth is None
-    again_flow, again_depth, direct = FP.depth_flow_project_bwd_counted(
-        *ins, need_depth=need_depth)
-    assert torch.equal(again_flow, gflow)
-    assert again_depth is None if gdepth is None else torch.equal(
-        again_depth, gdepth)
-    _check_direct(case, direct)
+    again = FP.depth_flow_project_bwd(*ins, need_depth=need_depth)
+    assert torch.equal(again[0], gflow)
+    assert again[1] is None if gdepth is None else torch.equal(again[1],
+                                                               gdepth)
 
     flow, depth, cot = ins[:3]
     f = flow.clone().requires_grad_()

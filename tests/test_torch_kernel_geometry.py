@@ -34,9 +34,8 @@ word-scan, shared-memory-box, direct-add and ragged-edge paths.
   against JAX's VJPs on K2's inputs and at N = 6: through
   ``scatter4_bwd_pallas`` (interpret mode) where the frame is whole 16x32
   bands and every pixel's cells stay in its slab, else through
-  ``_scatter4_transpose`` and ``jax.vjp`` of ``depth_flow_project``.  The
-  jump spreads some 8x32 tiles' cells past K6's shared-memory box (the
-  direct gather).  Tolerance 1e-5 absolute and relative.
+  ``_scatter4_transpose`` and ``jax.vjp`` of ``depth_flow_project``.
+  Tolerance 1e-5 absolute and relative.
 
 The port is NCHW, the JAX package NHWC.
 """
@@ -68,7 +67,6 @@ from vfidkr_torch.ops.filter_interpolation import (  # noqa: E402
 CSRC = Path(__file__).resolve().parents[1] / "vfidkr_torch" / "csrc"
 CTX_SOURCE = CSRC / "filter_interpolate_ctx.cu"
 SCATTER_SOURCE = CSRC / "flow_project_scatter.cu"
-GATHER_SOURCE = CSRC / "flow_project_scatter_bwd.cu"
 
 
 def _hole_sums(layout):
@@ -181,16 +179,17 @@ def _scatter_case(kind):
     return make(rng, n, h, w), geo.depth_weight(rng, n, h, w), path
 
 
-def _tile_boxes(flow, vec):
+def _k2_boxes(flow):
     """Per 8x32 source tile with a valid landing: the cells of the box its
-    valid pixels' four targets cover, as K2 and K6 reduce it (widened to
-    whole groups of ``vec`` columns, and its rows padded to a multiple of 32
-    cells)."""
+    valid pixels' four targets cover, as K2 reduces it (widened to whole
+    groups of four columns where W % 4 == 0, and its rows padded to a
+    multiple of 32 cells)."""
     n, _, h, w = flow.shape
     x2 = np.arange(w)[None, None, :] + flow[:, 0]
     y2 = np.arange(h)[None, :, None] + flow[:, 1]
     valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
     ix, iy = np.floor(x2).astype(int), np.floor(y2).astype(int)
+    vec = 4 if w % 4 == 0 else 1
     cells = []
     for b in range(n):
         for y0 in range(0, h, 8):
@@ -213,8 +212,7 @@ def test_scatter_inputs_reach_both_branches():
     several sources on a cell."""
     box_max = int(re.search(r"BOX_MAX = (\d+);", SCATTER_SOURCE.read_text())[1])
     for kind in SCATTER_CASES:
-        flow = _scatter_case(kind)[0]
-        boxes = _tile_boxes(flow, 4 if flow.shape[-1] % 4 == 0 else 1)
+        boxes = _k2_boxes(_scatter_case(kind)[0])
         if kind == "jump":
             assert (boxes > box_max).any() and (boxes <= box_max).any()
         else:
@@ -308,18 +306,6 @@ def _gather_case(kind):
     flow = make(rng, n, h, w)
     depth = geo.depth_weight(rng, n, h, w)
     return flow, depth, rng.randn(n, 3, h, w).astype(np.float32), path
-
-
-def test_gather_inputs_reach_both_branches():
-    """The jump sends some of K6's tiles to the direct gather and stages the
-    others' cells in shared memory; every other case stages every tile."""
-    box_max = int(re.search(r"BOX_MAX = (\d+);", GATHER_SOURCE.read_text())[1])
-    for kind in GATHER_CASES:
-        boxes = _tile_boxes(_gather_case(kind)[0], 1)
-        if kind == "jump":
-            assert (boxes > box_max).any() and (boxes <= box_max).any()
-        else:
-            assert (boxes <= box_max).all(), kind
 
 
 def _in_slab(prep):

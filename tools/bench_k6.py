@@ -1,37 +1,35 @@
 #!/usr/bin/env python3
 """What each part of K6's design buys, on one NVIDIA GPU.
 
-    python3 tools/bench_k6.py [--parent PATH]
+    python3 tools/bench_k6.py [--other PATH ...]
 
 Builds the committed source of K6 (``flow_project_scatter_bwd.cu``, both
-kernels) and ablations of it, each its own library in ``build/ablations/``
-(one nvcc each, all at once), and times each kernel with torch.profiler
-(device time, median of 20 launches) at 2x256x448 and at the train steps'
-6x256x448, on chip_smoke.py's flow (``make_flow``: smooth up to +-24 px, 5 %
-of the pixels pushed out of the frame; three draws at N = 6), on the paths'
-near-uniform (5.3, -3.1) px move and on a converging flow (each cell read by
-several pixels):
+kernels) and ablations of it, each its own library in ``build/ablations/``,
+and times each kernel with torch.profiler (device time, median of 20
+launches) at 2x256x448 and at the train steps' 6x256x448, on chip_smoke.py's
+flow (``make_flow``: smooth up to +-24 px, 5 % of the pixels pushed out of
+the frame; three draws at N = 6), on the paths' near-uniform (5.3, -3.1) px
+move and on a converging flow (each cell read by several pixels):
 
 * the kernels: ``flow_project_scatter_bwd`` (C = 2), ``depth_flow_project_bwd``
   without the depth gradient (as the slow-motion train step runs it) and
   with it;
 * the variants: as committed; ``64-bit index division`` (each pixel's batch,
   row and column from its flat index by 64-bit divisions, as the
-  one-dimensional kernel before had them); ``every tile direct`` (each
-  pixel's four cells straight from memory, their quotients formed at every
-  read, on the same 2D grid); ``quotient at every read`` (the box's inputs
-  staged, each pixel forming its four cells' terms from them); ``a
-  reciprocal a cell`` (g times 1 / cnt, not two divisions); ``box rows as
-  wide as the box`` (no padding of a box row to whole rows of 32 banks);
-  ``one cell staged at a time`` (a thread's box cells loaded one after
-  another);
-* with ``--parent PATH``: also the K6 source at PATH (an earlier commit's
-  ``flow_project_scatter_bwd.cu``, whose entry points take no tile
-  counter).
+  one-dimensional kernel before had them); ``two divisions a cell`` (g / cnt
+  as the plain version divides, not g times one reciprocal); ``4-row
+  tiles`` and ``16-row tiles`` (blocks of 128 and 512 threads); ``no
+  gathers`` (the floor: the flow read and the gradient written, no cell
+  read);
+* with ``--other PATH`` (repeatable): also the K6 source at PATH, named by
+  its directory: an earlier commit's ``flow_project_scatter_bwd.cu``, such
+  as the one-dimensional kernel (its entry points take what the committed
+  ones take) or the design that staged each tile's cells in shared memory
+  (they take a nullable direct-gather tile counter before the stream).
 
-Every variant is held to the plain versions (1e-5 x max(1, max |plain|)):
-each computes the same function.  The card's name and power limit come
-first.
+Every variant but ``no gathers`` is held to the plain versions (1e-5 x
+max(1, max |plain|)): each computes the same function.  The card's name and
+power limit come first.
 """
 
 from __future__ import annotations
@@ -52,7 +50,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 import chip_smoke as cs  # noqa: E402
 import torch_geometry as geo  # noqa: E402
-from bench_k7_k3 import OUT, device_us  # noqa: E402
+from bench_k7_k3 import device_us, library  # noqa: E402
 from vfidkr_torch.kernels import build  # noqa: E402
 from vfidkr_torch.ops import flow_projection as FP  # noqa: E402
 
@@ -60,94 +58,38 @@ K6_SRC = build.CSRC_DIR / "flow_project_scatter_bwd.cu"
 
 ABLATIONS = {
     "64-bit index division": [(
-        """  const int x = blockIdx.x * TW + lane;
-  const int y = blockIdx.y * TH + row;
+        """  const int x = blockIdx.x * TW + threadIdx.x;
+  const int y = blockIdx.y * TH + threadIdx.y;
   const int b = blockIdx.z;
 """, """  const long long hw64 = (long long)h * w;
-  const long long flat = ((long long)blockIdx.z * h + blockIdx.y * TH + row) * w
-                         + blockIdx.x * TW + lane;
+  const long long flat = ((long long)blockIdx.z * h + blockIdx.y * TH + threadIdx.y)
+                         * w + blockIdx.x * TW + threadIdx.x;
   const int b = (int)(flat / hw64);
   const int y = (int)((flat - b * hw64) / w);
   const int x = (int)(flat - b * hw64 - (long long)y * w);
 """)],
-    "every tile direct": [("  } else if ((long long)pitch * bh > BOX_MAX) {",
-                           "  } else if (true) {")],
-    "quotient at every read": [
-        ("  __shared__ float box[C][BOX_MAX];",
-         "  __shared__ float box[R][BOX_MAX];"),
-        ("""          float t[C];
-          Field<MODE>::term(v[i], t);
-#pragma unroll
-          for (int c = 0; c < C; ++c) box[c][at] = t[c];
-""", """#pragma unroll
-          for (int c = 0; c < R; ++c) box[c][at] = v[i][c];
-"""),
-        ("""#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s[c] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) s[c] += box[c][at[k]];
-      }
-""", """#pragma unroll
-      for (int c = 0; c < C; ++c) s[c] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float v[R], t[C];
-#pragma unroll
-        for (int c = 0; c < R; ++c) v[c] = box[c][at[k]];
-        Field<MODE>::term(v, t);
-#pragma unroll
-        for (int c = 0; c < C; ++c) s[c] += t[c];
-      }
-""")],
-    "a reciprocal a cell": [("""      t[0] = v[0] / den;
-      t[1] = v[1] / den;
-""", """      const float rcp = 1.0f / den;
+    "two divisions a cell": [("""      const float rcp = 1.0f / fmaxf(v[2], 1e-30f);
       t[0] = v[0] * rcp;
       t[1] = v[1] * rcp;
+""", """      const float den = fmaxf(v[2], 1e-30f);
+      t[0] = v[0] / den;
+      t[1] = v[1] / den;
 """)],
-    "box rows as wide as the box": [("  const int pitch = (bw + 31) & ~31;",
-                                     "  const int pitch = bw;")],
-    "one cell staged at a time": [("constexpr int UNROLL = 4;",
-                                   "constexpr int UNROLL = 1;")],
+    "4-row tiles": [("constexpr int TH = 8;", "constexpr int TH = 4;")],
+    "16-row tiles": [("constexpr int TH = 8;", "constexpr int TH = 16;")],
+    "no gathers": [("  for (int k = 0; k < 4; ++k) f.load(cells[k], v[k]);",
+                    """  for (int k = 0; k < 4; ++k)
+    for (int r = 0; r < R; ++r) v[k][r] = 1.0f + (cells[k] & 1);""")],
 }
-
-
-def libraries(variants) -> dict:
-    """Build every variant ({name: (source, edits)}) into its own library,
-    one nvcc each, all at once; print each one's registers."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, (src, edits) in variants.items():
-        text = src.read_text()
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer has "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        cu = OUT / f"k6-{name.replace(' ', '_').replace('/', '_')}.cu"
-        cu.write_text(text)
-        so = cu.with_suffix(".so")
-        jobs[name] = (so, subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}:\n{log}")
-        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                if "registers" in ln]
-        print(f"  {name}: {'; '.join(regs)}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
+UNCHECKED = ("no gathers",)
 
 
 def _entry(lib, name, counted):
+    """The entry point ``name``; ``counted``: it takes a tile counter
+    before the stream (the staged design)."""
     fn = getattr(lib, name)
     sig = build.SIGNATURES[name]
-    fn.argtypes = sig if counted else sig[:-2] + sig[-1:]
+    fn.argtypes = sig[:-1] + [ctypes.c_void_p] + sig[-1:] if counted else sig
     return fn
 
 
@@ -200,9 +142,9 @@ def inputs(g, rng, flow):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path,
-                        help="an earlier flow_project_scatter_bwd.cu to time "
-                             "beside the committed one")
+    parser.add_argument("--other", type=Path, action="append", default=[],
+                        help="another flow_project_scatter_bwd.cu to time "
+                             "beside the committed one (repeatable)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -210,11 +152,15 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
     dev = torch.device("cuda:0")
-    variants = {"as committed": (K6_SRC, []),
-                **{name: (K6_SRC, edits) for name, edits in ABLATIONS.items()}}
-    if args.parent is not None:
-        variants["parent"] = (args.parent, [])
-    libs = libraries(variants)
+    variants = {"as committed": (K6_SRC, []), **{
+        name: (K6_SRC, edits) for name, edits in ABLATIONS.items()}}
+    counted = set()
+    for path in args.other:
+        variants[path.parent.name] = (path, [])
+        if "int* direct_tiles" in path.read_text():
+            counted.add(path.parent.name)
+    libs = {name: library(src, name, edits)
+            for name, (src, edits) in variants.items()}
 
     g = torch.Generator().manual_seed(0)
     rng = np.random.RandomState(0)
@@ -235,12 +181,12 @@ def main() -> None:
             want = plain(kernel, ins)
             scale = max(1.0, *(w.abs().max().item() for w in want))
             for name, lib in libs.items():
-                counted = name != "parent"
-                got = launch(lib, counted, kernel, ins)
+                tiles = name in counted
+                got = launch(lib, tiles, kernel, ins)
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
-                if not err <= cs.ATOL * scale:
+                if name not in UNCHECKED and not err <= cs.ATOL * scale:
                     raise AssertionError(f"{kernel} {name} {label}: {err}")
-                us = device_us(lambda: launch(lib, counted, kernel, ins),
+                us = device_us(lambda: launch(lib, tiles, kernel, ins),
                                kernel.split(" ")[0] + "_kernel")
                 print(f"{kernel:34s} {name:28s} {label:18s} {us:8.2f} us")
 

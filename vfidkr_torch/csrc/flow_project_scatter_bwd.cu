@@ -32,31 +32,30 @@
 // An invalid pixel writes zeros.  At the right and bottom border two cells are
 // one, read twice, as the forward added to it twice.  The reference's depth
 // gradient has (f - out) where the autodiff of the forward would give (f + out);
-// it is kept.  A hole fill, where the forward made one, takes no gradient.  The
-// term is formed with the plain version's roundings (IEEE divisions, no fused
-// multiply-adds), so the depth projection's backward equals its plain version
-// bit for bit.
+// it is kept.  A hole fill, where the forward made one, takes no gradient.  A
+// valid pixel's four cells each hold its own weight (cnt >= d > 0); a hole's
+// g / 1e-30 is never read.  A cell's quotients are g times one IEEE reciprocal
+// of max(cnt, 1e-30), where the plain version divides twice: within two ulps of
+// it, and faster at C = 3 than two divisions (tools/bench_k6.py).
 //
-// What bounds it on the H100: memory, at one wave's latency.  Each input read
-// once and each output written once is 24 bytes a pixel for the plain scatter's
-// gradient (flow 8, g0 and g1 8, gflow 8), 32 for the depth projection's without
-// gdepth (flow 8, depth 4, g 8, cnt 4; gflow 8) and 44 with it (out 8, gdepth 4).
-// A gather straight from memory makes each pixel load its four cells' inputs
-// (8 to 20 scalar loads, behind the flow's) and, on a smooth flow, forms each
-// cell's quotient for each of the ~4 pixels that read it.
-// Design: a block owns a tile of 8 rows x 32 source pixels (a warp a row), on a
-// 2D grid with the batch on z (32-bit index arithmetic inside a plane).  It
-// reduces the box of cells its valid pixels' four cells cover; where that box
-// (its rows padded to whole 32-bank rows, so that a warp whose cells slant
-// across rows meets no other lane's bank) holds at most BOX_MAX cells, the block
-// loads the box's inputs row by row, coalesced, forms each cell's term once into
-// shared memory, and each thread sums its four cells from there.  No sum runs
-// over the box: a hole cell's term (g / 1e-30, inf times out = 0 is NaN) is
-// staged but never read by a valid pixel, which is one of its cells' sources.
-// A tile whose box exceeds BOX_MAX (a fold, a sharp discontinuity) gathers
-// straight from memory instead, in the same kernel, and adds one to
-// *direct_tiles where that pointer is set.  No atomics on the data: the result
-// is the same on every run.
+// What bounds it on the H100: memory, at one wave's latency at N = 2.  Each input
+// read once and each output written once is 24 bytes a pixel for the plain
+// scatter's gradient (flow 8, g0 and g1 8, gflow 8), 32 for the depth
+// projection's without gdepth (flow 8, depth 4, g 8, cnt 4; gflow 8) and 44 with
+// it (out 8, gdepth 4): 1.64, 2.19 and 3.01 us at 2x256x448 and 3.35 TB/s.
+// Design: a thread a source pixel, on a 2D grid of 8x32 tiles (a warp along a
+// row, so that the flow's, the depth's and the outputs' accesses coalesce) with
+// the batch on z: 32-bit index arithmetic inside a plane, and no division (the
+// one-dimensional grid before took each pixel's batch, row and column by 64-bit
+// divisions, a software routine on sm_90).  Each valid pixel asks for its four
+// cells' inputs at once (8, 12 or 20 loads) and forms their terms after, in the
+// plain version's order (tl, tr, bl, br).  On a smooth flow neighbouring pixels
+// read neighbouring cells, so a cell, read by about four pixels, is loaded from
+// L1 after the first.  Staging each tile's cells in shared memory instead, each
+// cell's term formed once, ran slower at every shape measured: the reduction of
+// the tile's box, two barriers and the lower occupancy cost more than the loads
+// and divisions it saved (PERF.md).  A gather, no atomics: the result is the
+// same on every run.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -65,10 +64,6 @@ namespace {
 
 constexpr int TW = 32;              // tile columns: a warp
 constexpr int TH = 8;               // tile rows: a warp each
-constexpr int THREADS = TW * TH;
-constexpr int BOX_MAX = 2048;       // largest box staged in shared memory, in cells
-constexpr int UNROLL = 4;           // box cells a thread stages at once
-constexpr unsigned FULL = 0xffffffffu;
 
 // The per-cell term a source pixel sums, for MODE
 //   0 flow_project_scatter_bwd, 1 depth_flow_project_bwd without gdepth,
@@ -99,195 +94,101 @@ struct Field {
       t[0] = v[0];
       t[1] = v[1];
     } else {
-      const float den = fmaxf(v[2], 1e-30f);
-      t[0] = v[0] / den;
-      t[1] = v[1] / den;
-      if constexpr (MODE == 2) t[2] = __fadd_rn(__fmul_rn(t[0], v[3]), __fmul_rn(t[1], v[4]));
+      const float rcp = 1.0f / fmaxf(v[2], 1e-30f);
+      t[0] = v[0] * rcp;
+      t[1] = v[1] * rcp;
+      if constexpr (MODE == 2) t[2] = t[0] * v[3] + t[1] * v[4];
     }
   }
 };
 
 template <int MODE>
-__device__ __forceinline__ void gather4_tile(const float* __restrict__ flow,
-                                             const float* __restrict__ depth,
-                                             Field<MODE> f, float* __restrict__ gflow,
-                                             float* __restrict__ gdepth, int h, int w,
-                                             int* direct_tiles) {
+__device__ __forceinline__ void gather4(const float* __restrict__ flow,
+                                        const float* __restrict__ depth,
+                                        Field<MODE> f, float* __restrict__ gflow,
+                                        float* __restrict__ gdepth, int h, int w) {
   constexpr int C = Field<MODE>::C;
   constexpr int R = Field<MODE>::R;
-  __shared__ float box[C][BOX_MAX];
-  __shared__ unsigned red[4][TH];
-
-  const int lane = threadIdx.x;
-  const int row = threadIdx.y;
-  const int tid = row * TW + lane;
-  const int x = blockIdx.x * TW + lane;
-  const int y = blockIdx.y * TH + row;
+  const int x = blockIdx.x * TW + threadIdx.x;
+  const int y = blockIdx.y * TH + threadIdx.y;
   const int b = blockIdx.z;
+  if (x >= w || y >= h) return;
   const int hw = h * w;
   const int p = y * w + x;
-  const bool inside = x < w && y < h;
 
-  bool valid = false;
-  float fx = 0.0f, fy = 0.0f, d = 1.0f;
-  int ix_l = 0, ix_r = 0, iy_t = 0, iy_b = 0;
-  if (inside) {
-    fx = flow[2LL * b * hw + p];
-    fy = flow[(2LL * b + 1) * hw + p];
-    if constexpr (MODE >= 1) d = depth[(long long)b * hw + p];
-    const float x2 = (float)x + fx;
-    const float y2 = (float)y + fy;
-    valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) && y2 <= (float)(h - 1);
-    if (valid) {
-      ix_l = (int)floorf(x2);
-      iy_t = (int)floorf(y2);
-      ix_r = min(ix_l + 1, w - 1);
-      iy_b = min(iy_t + 1, h - 1);
-    }
-  }
+  const float fx = flow[2LL * b * hw + p];
+  const float fy = flow[(2LL * b + 1) * hw + p];
+  const float d = MODE >= 1 ? depth[(long long)b * hw + p] : 1.0f;
+  const float x2 = (float)x + fx;
+  const float y2 = (float)y + fy;
   float* gf = gflow + 2LL * b * hw + p;
   float* gd = MODE == 2 ? gdepth + (long long)b * hw + p : nullptr;
-
-  // the box of cells that the valid pixels' four cells cover
-  const unsigned r[4] = {
-      __reduce_min_sync(FULL, valid ? (unsigned)ix_l : UINT_MAX),
-      __reduce_max_sync(FULL, valid ? (unsigned)ix_r : 0u),
-      __reduce_min_sync(FULL, valid ? (unsigned)iy_t : UINT_MAX),
-      __reduce_max_sync(FULL, valid ? (unsigned)iy_b : 0u)};
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) red[i][row] = r[i];
-  }
-  __syncthreads();
-  unsigned m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = red[i][0];
-#pragma unroll
-    for (int j = 1; j < TH; ++j)
-      m[i] = (i == 0 || i == 2) ? min(m[i], red[i][j]) : max(m[i], red[i][j]);
-  }
-  const int bx0 = (int)m[0];
-  const int by0 = (int)m[2];
-  const int bw = (int)m[1] - bx0 + 1;
-  const int bh = (int)m[3] - by0 + 1;
-  // a box row takes a whole number of 32-word rows of banks
-  const int pitch = (bw + 31) & ~31;
-
-  float s[C];
-  if (m[0] == UINT_MAX) {
-    // no valid pixel in the tile
-  } else if ((long long)pitch * bh > BOX_MAX) {
-    // the direct branch: each pixel's four cells straight from memory
-    if (direct_tiles != nullptr && tid == 0) atomicAdd(direct_tiles, 1);
-    if (valid) {
-      const int cells[4] = {iy_t * w + ix_l, iy_t * w + ix_r, iy_b * w + ix_l,
-                            iy_b * w + ix_r};
-      float v[4][R];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) f.load(cells[k], v[k]);
-#pragma unroll
-      for (int c = 0; c < C; ++c) s[c] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float t[C];
-        Field<MODE>::term(v[k], t);
-#pragma unroll
-        for (int c = 0; c < C; ++c) s[c] += t[c];
-      }
-    }
-  } else {
-    // the staged branch: each box cell's inputs loaded once, row by row (a
-    // cell's row by a multiply-high, exact for e < 2^32 / bw), UNROLL cells' loads
-    // in flight at once, its term formed once
-    const int cells = bw * bh;
-    const unsigned long long inv_bw = 0x100000000ull / (unsigned)bw + 1;
-    for (int e0 = tid; e0 < cells; e0 += UNROLL * THREADS) {
-      float v[UNROLL][R];
-#pragma unroll
-      for (int i = 0; i < UNROLL; ++i) {
-        const int e = e0 + i * THREADS;
-        if (e < cells) {
-          const int rr = (int)((e * inv_bw) >> 32);
-          f.load((by0 + rr) * w + bx0 + e - rr * bw, v[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < UNROLL; ++i) {
-        const int e = e0 + i * THREADS;
-        if (e < cells) {
-          const int rr = (int)((e * inv_bw) >> 32);
-          const int at = rr * pitch + e - rr * bw;
-          float t[C];
-          Field<MODE>::term(v[i], t);
-#pragma unroll
-          for (int c = 0; c < C; ++c) box[c][at] = t[c];
-        }
-      }
-    }
-    __syncthreads();
-    if (valid) {
-      const int t0 = (iy_t - by0) * pitch - bx0;
-      const int t1 = (iy_b - by0) * pitch - bx0;
-      const int at[4] = {t0 + ix_l, t0 + ix_r, t1 + ix_l, t1 + ix_r};
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        s[c] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) s[c] += box[c][at[k]];
-      }
-    }
-  }
-
-  if (!inside) return;
-  if (!valid) {
+  if (!(x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) && y2 <= (float)(h - 1))) {
     gf[0] = 0.0f;
     gf[hw] = 0.0f;
     if constexpr (MODE == 2) *gd = 0.0f;
     return;
   }
+
+  const int ix_l = (int)floorf(x2);
+  const int iy_t = (int)floorf(y2);
+  const int ix_r = min(ix_l + 1, w - 1);
+  const int iy_b = min(iy_t + 1, h - 1);
+  const int cells[4] = {iy_t * w + ix_l, iy_t * w + ix_r, iy_b * w + ix_l,
+                        iy_b * w + ix_r};
+  float v[4][R];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) f.load(cells[k], v[k]);
+  float s[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) s[c] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float t[C];
+    Field<MODE>::term(v[k], t);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] += t[c];
+  }
+
   if constexpr (MODE == 0) {
     gf[0] = -s[0];
     gf[hw] = -s[1];
   } else {
     gf[0] = -s[0] * d;
     gf[hw] = -s[1] * d;
-    if constexpr (MODE == 2)
-      *gd = -__fsub_rn(__fadd_rn(__fmul_rn(s[0], fx), __fmul_rn(s[1], fy)), s[2]);
+    if constexpr (MODE == 2) *gd = -(s[0] * fx + s[1] * fy - s[2]);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(TW * TH)
     flow_project_scatter_bwd_kernel(const float* __restrict__ flow,
                                     const float* __restrict__ g,
-                                    float* __restrict__ gflow, int h, int w,
-                                    int* direct_tiles) {
+                                    float* __restrict__ gflow, int h, int w) {
   const long long hw = (long long)h * w;
   const float* g0 = g + 3LL * blockIdx.z * hw;
-  gather4_tile<0>(flow, nullptr, Field<0>{g0, g0 + hw, nullptr, nullptr, nullptr},
-                  gflow, nullptr, h, w, direct_tiles);
+  gather4<0>(flow, nullptr, Field<0>{g0, g0 + hw, nullptr, nullptr, nullptr}, gflow,
+             nullptr, h, w);
 }
 
 template <bool kDepth>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(TW * TH)
     depth_flow_project_bwd_kernel(const float* __restrict__ flow,
                                   const float* __restrict__ depth,
                                   const float* __restrict__ g,
                                   const float* __restrict__ cnt,
                                   const float* __restrict__ out,
                                   float* __restrict__ gflow,
-                                  float* __restrict__ gdepth, int h, int w,
-                                  int* direct_tiles) {
+                                  float* __restrict__ gdepth, int h, int w) {
   const long long hw = (long long)h * w;
   const float* g0 = g + 2LL * blockIdx.z * hw;
   const float* cn = cnt + blockIdx.z * hw;
   if constexpr (kDepth) {
     const float* o0 = out + 2LL * blockIdx.z * hw;
-    gather4_tile<2>(flow, depth, Field<2>{g0, g0 + hw, cn, o0, o0 + hw}, gflow, gdepth,
-                    h, w, direct_tiles);
+    gather4<2>(flow, depth, Field<2>{g0, g0 + hw, cn, o0, o0 + hw}, gflow, gdepth, h,
+               w);
   } else {
-    gather4_tile<1>(flow, depth, Field<1>{g0, g0 + hw, cn, nullptr, nullptr}, gflow,
-                    nullptr, h, w, direct_tiles);
+    gather4<1>(flow, depth, Field<1>{g0, g0 + hw, cn, nullptr, nullptr}, gflow,
+               nullptr, h, w);
   }
 }
 
@@ -298,35 +199,33 @@ bool grid_fits(int n, int h, int w) {
 }  // namespace
 
 // g (N,3,H,W) is the cotangent of flow_project_scatter's sums; gflow (N,2,H,W) is
-// written in full.  direct_tiles (or NULL): gains the number of 8x32 tiles that
-// gathered straight from memory.
+// written in full.
 extern "C" int vfidkr_flow_project_scatter_bwd(const float* flow, const float* g,
                                                float* gflow, int n, int h, int w,
-                                               int* direct_tiles,
                                                cudaStream_t stream) {
   if (!grid_fits(n, h, w)) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   flow_project_scatter_bwd_kernel<<<grid, dim3(TW, TH), 0, stream>>>(flow, g, gflow, h,
-                                                                     w, direct_tiles);
+                                                                     w);
   return (int)cudaGetLastError();
 }
 
 // flow, g, out and gflow (N,2,H,W); depth, cnt and gdepth (N,H,W).  gflow is
 // written in full; gdepth likewise, or it is NULL and the depth gradient (and
-// `out`, which may then be NULL too) is skipped.  direct_tiles as above.
+// `out`, which may then be NULL too) is skipped.
 extern "C" int vfidkr_depth_flow_project_bwd(const float* flow, const float* depth,
                                              const float* g, const float* cnt,
                                              const float* out, float* gflow,
                                              float* gdepth, int n, int h, int w,
-                                             int* direct_tiles, cudaStream_t stream) {
+                                             cudaStream_t stream) {
   if (!grid_fits(n, h, w)) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   if (gdepth != nullptr) {
     depth_flow_project_bwd_kernel<true><<<grid, dim3(TW, TH), 0, stream>>>(
-        flow, depth, g, cnt, out, gflow, gdepth, h, w, direct_tiles);
+        flow, depth, g, cnt, out, gflow, gdepth, h, w);
   } else {
     depth_flow_project_bwd_kernel<false><<<grid, dim3(TW, TH), 0, stream>>>(
-        flow, depth, g, cnt, out, gflow, gdepth, h, w, direct_tiles);
+        flow, depth, g, cnt, out, gflow, gdepth, h, w);
   }
   return (int)cudaGetLastError();
 }

@@ -24,19 +24,16 @@ Four CUDA kernels carry it on the card:
   ``scatter4_counted`` also returns how many tiles spread too far for that
   and added straight to the sums); unweighted, through an
   autograd Function whose backward is ``flow_project_scatter_bwd``
-  (``vfidkr_torch/csrc/flow_project_scatter_bwd.cu``: a block per 8x32
-  tile of source pixels stages its cells' cotangent in shared memory and
-  gathers each pixel's four cells from there; ``scatter4_bwd_counted``
-  also returns how many tiles spread too far for that and gathered
-  straight from memory);
+  (``vfidkr_torch/csrc/flow_project_scatter_bwd.cu``: a thread a source
+  pixel gathers its four cells, on a 2D grid of 8x32 tiles);
 * ``finalize``: the count average and hole fill, inference only
   (``flow_project_finalize``, ``vfidkr_torch/csrc/flow_project_finalize.cu``:
   a block per 32x32 tile, whose holes find their nearest filled cells over
   filled bitmasks, 32 cells a word);
 * ``depth_flow_project_bwd`` (in ``flow_project_scatter_bwd.cu``): the
-  backward of the depth-weighted projection, on the same tiles, each
-  staged cell's ``g / cnt`` (and ``(g·out) / cnt``) formed once;
-  ``depth_flow_project_bwd_counted`` counts its direct-gather tiles.
+  backward of the depth-weighted projection, on the same grid, each of a
+  pixel's four cells' ``g / cnt`` (and ``(g·out) / cnt``) formed with the
+  plain version's roundings.
 
 Each launches its kernel on CUDA tensors and runs its plain version on CPU
 tensors.  The kernel's atomic adds make the summed flow depend on their order
@@ -142,30 +139,6 @@ def scatter4_counted(flow: torch.Tensor, weight: torch.Tensor | None = None
     return acc, int(count.item())
 
 
-def _launch_scatter4_bwd(flow, g, direct_tiles=None):
-    kernels.check_inputs("flow_project_scatter_bwd", g, flow)
-    n, _, h, w = flow.shape
-    if tuple(g.shape) != (n, 3, h, w):
-        raise ValueError(f"flow_project_scatter_bwd: g must be {(n, 3, h, w)},"
-                         f" got {tuple(g.shape)}")
-    gflow = torch.empty_like(flow)
-    kernels.launch("flow_project_scatter_bwd", flow, g, gflow, n, h, w,
-                   direct_tiles)
-    return gflow
-
-
-def scatter4_bwd_counted(flow: torch.Tensor, g: torch.Tensor
-                         ) -> tuple[torch.Tensor, int]:
-    """``flow_project_scatter_bwd`` on CUDA tensors: the flow gradient of
-    the unweighted ``scatter4`` under the (N,3,H,W) cotangent ``g``, with
-    the number of 8x32 source tiles whose cells spread too far to stage in
-    shared memory and were gathered straight from memory instead."""
-    _check_flow(flow)
-    count = torch.zeros(1, dtype=torch.int32, device=flow.device)
-    gflow = _launch_scatter4_bwd(flow, g, count)
-    return gflow, int(count.item())
-
-
 class _Scatter4Kernel(torch.autograd.Function):
     """Forward ``flow_project_scatter`` unweighted, backward
     ``flow_project_scatter_bwd`` (the count channel carries no gradient to
@@ -179,7 +152,12 @@ class _Scatter4Kernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (flow,) = ctx.saved_tensors
-        return _launch_scatter4_bwd(flow, g.contiguous())
+        g = g.contiguous()
+        kernels.check_inputs("flow_project_scatter_bwd", g, flow)
+        n, _, h, w = flow.shape
+        gflow = torch.empty_like(flow)
+        kernels.launch("flow_project_scatter_bwd", flow, g, gflow, n, h, w)
+        return gflow
 
 
 def scatter4(flow: torch.Tensor,
@@ -320,8 +298,15 @@ def depth_flow_project_bwd_plain(flow: torch.Tensor, depth: torch.Tensor,
     return gflow, gdepth
 
 
-def _launch_depth_bwd(flow, depth, g, cnt, out, need_depth,
-                      direct_tiles=None):
+def depth_flow_project_bwd(flow: torch.Tensor, depth: torch.Tensor,
+                           g: torch.Tensor, cnt: torch.Tensor,
+                           out: torch.Tensor, need_depth: bool = True):
+    """The depth projection's backward: kernel ``depth_flow_project_bwd`` on
+    CUDA tensors (``gdepth`` NULL where ``need_depth`` is false), the plain
+    version on CPU tensors.  Returns (gflow, gdepth or None)."""
+    if flow.device.type == "cpu":
+        return depth_flow_project_bwd_plain(flow, depth, g, cnt, out,
+                                            need_depth)
     kernels.check_inputs("depth_flow_project_bwd", flow, depth, g, cnt, out)
     n, _, h, w = flow.shape
     for name, t, shape in (("depth", depth, (n, h, w)),
@@ -333,32 +318,8 @@ def _launch_depth_bwd(flow, depth, g, cnt, out, need_depth,
     gflow = torch.empty_like(flow)
     gdepth = torch.empty_like(depth) if need_depth else None
     kernels.launch("depth_flow_project_bwd", flow, depth, g, cnt, out, gflow,
-                   gdepth, n, h, w, direct_tiles)
+                   gdepth, n, h, w)
     return gflow, gdepth
-
-
-def depth_flow_project_bwd(flow: torch.Tensor, depth: torch.Tensor,
-                           g: torch.Tensor, cnt: torch.Tensor,
-                           out: torch.Tensor, need_depth: bool = True):
-    """The depth projection's backward: kernel ``depth_flow_project_bwd`` on
-    CUDA tensors (``gdepth`` NULL where ``need_depth`` is false), the plain
-    version on CPU tensors.  Returns (gflow, gdepth or None)."""
-    if flow.device.type == "cpu":
-        return depth_flow_project_bwd_plain(flow, depth, g, cnt, out,
-                                            need_depth)
-    return _launch_depth_bwd(flow, depth, g, cnt, out, need_depth)
-
-
-def depth_flow_project_bwd_counted(flow: torch.Tensor, depth: torch.Tensor,
-                                   g: torch.Tensor, cnt: torch.Tensor,
-                                   out: torch.Tensor, need_depth: bool = True):
-    """``depth_flow_project_bwd`` on CUDA tensors, with the number of 8x32
-    source tiles gathered straight from memory (as
-    ``scatter4_bwd_counted``).  Returns (gflow, gdepth or None, count)."""
-    count = torch.zeros(1, dtype=torch.int32, device=flow.device)
-    gflow, gdepth = _launch_depth_bwd(flow, depth, g, cnt, out, need_depth,
-                                      count)
-    return gflow, gdepth, int(count.item())
 
 
 class _DepthFlowProject(torch.autograd.Function):
