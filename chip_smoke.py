@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths, the DAIN eval forward, the DAIN train
 step, the DAIN_slowmotion 4x eval forward and the DAIN_slowmotion train step
-in float32, the same two eval forwards in the bf16 fast-eval lane, and the
-Middlebury eval app's core in that lane, on one NVIDIA GPU through its eight
-hand-written CUDA kernels, and check them.
+in float32, the same two eval forwards in the bf16 fast-eval lane, the
+Middlebury eval app's core in that lane, the N x video driver on a 1280x720
+PNG clip in both lanes, the trainer on PNG triplets from disk with a resume,
+and the depth-eval core, on one NVIDIA GPU through its eight hand-written
+CUDA kernels, and check them.
 
 Run from the root of the repository, with no arguments:
 
@@ -11,7 +13,7 @@ Run from the root of the repository, with no arguments:
 
 Phases, each printing its own lines; any failure raises, so the script exits
 non-zero and prints no result line.  The paths are checked and timed first
-(3-5a, then 5b-5d), the kernel cases next (6), and every torch.profiler
+(3-5a, then 5b-5g), the kernel cases next (6), and every torch.profiler
 session comes last (7), since host-bound timings read slower after one:
 
 1. device: needs CUDA (no CPU fallback); prints the card's name and power
@@ -54,6 +56,34 @@ session comes last (7), since host-bound timings read slower after one:
    (vfidkr_torch.apps.demo_middlebury.evaluate) in the bf16 lane on three
    synthetic 640x480 pairs on the 8-bit grid, padded to 704x512: K4 at
    (1,128,512,704); its IE, PSNR and SSIM, and its device time a pair;
+5e. video: the video driver (vfidkr_torch.apps.interpolate_video.main) on a
+   4-frame 1280x720 PNG clip whose rows are filtered as PIL's encoder
+   filters them (phase 3's smooth scene moved (5, -3) px a frame),
+   DAINSlowMotion(0.25) from a reference-layout .pth of phase 4's weights,
+   in the float32 and the bf16 lane, at 1344x768 (padded): 4 pass-through
+   and 9 synthesised PNGs, the pass-through equal to the input, each
+   synthesised frame against the same model run in memory on the card
+   (VIDEO_LEVELS, VIDEO_SHARE), the launches exactly (3 x phase 4's, and K4
+   54 in bf16), its interp_frames_per_sec and its own decode / forward /
+   encode split, peak memory; in the bf16 lane also the in-memory forward
+   run twice with K2 summed on the host and cuDNN deterministic, which must
+   agree bit for bit (the two sources of its run-to-run change,
+   tools/bf16_determinism.py); then the bf16 lane again on the clip as the
+   port's writer writes it (Up rows);
+   before it, the host's PNG times (write_png, read_png of its files and of
+   frames filtered as PIL filters them);
+5f. train_from_disk: the trainer (vfidkr_torch.apps.train.main) on 18
+   synthetic 256x448 triplets written by vfidkr_torch.data.synthetic and
+   re-encoded with PIL's row filters, 2 epochs of 4 steps at B=3, then
+   --resume to 3, the frames decoded by the trainer's default 4 worker
+   processes: the epoch seam, the Adamax step count and the plateau state
+   carried over; then its ms/step from disk (2 epochs of 10 steps, the
+   second the reading) beside phase 5's in memory, the same decoded on the
+   prefetch thread, and on the triplets as written (Up rows);
+5g. depth: the depth-eval core (vfidkr_torch.apps.depth_eval.evaluate_depth)
+   at 256x320 on two samples with depths and SDR pairs, MegaDepth from
+   seed 0, on the card and on the CPU: si-RMSE within rtol 1e-4, the SDR
+   counts equal;
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -87,7 +117,8 @@ session comes last (7), since host-bound timings read slower after one:
    index_add_, each yardstick's also on the device; and its bound: the
    larger of its bytes (each input read once, each output written once) at
    3.35 TB/s and its operations at 67 TFLOP/s float32 (989 TFLOP/s bf16
-   for K4);
+   for K4); then, compared only, K1, K7, the weighted K2, K3 and K4 at the
+   video phase's 1344x768;
 7. profile: where the slow-motion forward's, the two train steps' and the
    bf16 lane's time goes (each stage alone, the Adamax step, torch.profiler
    over whole runs: busy share, the largest device kernels), and each kernel
@@ -98,12 +129,17 @@ session comes last (7), since host-bound timings read slower after one:
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -112,23 +148,32 @@ import torch
 import torch.nn.functional as F
 
 from vfidkr_torch import kernels
-from vfidkr_torch.apps import demo_middlebury
+from vfidkr_torch.apps import demo_middlebury, interpolate_video
+from vfidkr_torch.apps import train as train_app
+from vfidkr_torch.apps.depth_eval import evaluate_depth
+from vfidkr_torch.convert import reference_state_dict
+from vfidkr_torch.data import synthetic
 from vfidkr_torch.kernels import build
 from vfidkr_torch.models import DAIN, DAINSlowMotion
 from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP
 from vfidkr_torch.models.layers import upsample_bilinear
-from vfidkr_torch.models.megadepth import depth_inv_from_log_depth
+from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
+                                           depth_inv_from_log_depth)
 from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.ops import rectify as RB
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
                                    train_step)
+from vfidkr_torch.training.lr_schedule import PlateauState, plateau_step
 from vfidkr_torch.training.train_state import FROZEN, GROUPS
+from vfidkr_torch.utils import pad_to_multiple, unpad
+from vfidkr_torch.utils.image_io import ZLIB_LEVEL, read_png, write_png
 
 # the flows and hole layouts that reach K7's and K3's branches, shared with
 # the card-only tests
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 import torch_geometry as geo  # noqa: E402
+import torch_png  # noqa: E402
 
 N, H, W = 2, 256, 448           # both directions of one 448x256 frame pair
 C_CTX = 196                     # DAIN_slowmotion's context: S2DF + log-depth
@@ -154,6 +199,29 @@ K4_TOL = 2.0 ** -6              # two bf16 ulps, see _compare_k4
 # mean, 7x its max (28x the pixels at 448x256) and 8 dB under its PSNR.
 LANE_MEAN, LANE_MAX, LANE_PSNR = 0.02, 0.25, 32.0
 MB_H, MB_W, MB_PAIRS = 480, 640, 3     # the Middlebury phase's frames
+# the video phase: a 4-frame 1280x720 clip from PNG files, 3 pairs, run at
+# 1344x768 (padded to a multiple of 128, at least 32 px a side)
+VIDEO_H, VIDEO_W, VIDEO_FRAMES = 720, 1280, 4
+VIDEO_PAIRS = VIDEO_FRAMES - 1
+VIDEO_PADDED = (768, 1344)
+# a synthesised PNG against the same model run in memory: float32 within 1
+# level, bf16 within 8, at most 0.5 % of the values differing.  The forward
+# changes from run to run where sums run in any order: cuDNN's algorithm for
+# PWC-Net's transposed convolutions and K2's float atomics
+# (tools/bf16_determinism.py); a flipped last bit there flips bf16
+# roundings in the rectifier (bf16: 5-6 levels on 0.23-0.24 % of the
+# values measured)
+VIDEO_LEVELS = {"float32": 1, "bfloat16": 8}
+VIDEO_SHARE = 0.005
+# the train_from_disk phase: tools/run_plateau_resume.sh's 18 triplets
+# (12 train, 6 test) at 256x448, B=3, 4 steps an epoch, 2 epochs then a
+# resume to 3; patience 1, factor 0.2
+DISK_TRIPLETS, DISK_STEPS, DISK_PATIENCE, DISK_FACTOR = 18, 4, 1, 0.2
+# its ms/step readings: 2 epochs of 10 steps, the second the reading (the
+# first holds the fresh trainer's set-up)
+DISK_READ_STEPS = 10
+DISK_HW = (H, W)
+DEPTH_HW, DEPTH_SDR_PAIRS = (256, 320), 200   # the depth phase's samples
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -214,6 +282,12 @@ PATHS = {
                           "filter_interpolate_bwd": 1,
                           "depth_flow_project_bwd": 1},
 }
+# the video driver over VIDEO_PAIRS pairs, each a slow-motion forward, in
+# each lane
+PATHS["video_slowmo"] = {k: VIDEO_PAIRS * n
+                         for k, n in PATHS["slowmo_forward"].items()}
+PATHS["video_slowmo_bf16"] = {k: VIDEO_PAIRS * n
+                              for k, n in PATHS["slowmo_forward_bf16"].items()}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1}
@@ -573,6 +647,28 @@ def phase_kernels(dev: torch.device) -> dict:
              peak=BF16_FLOP_S, per_call=RB.N_CONVS,
              library=lambda x=x_cl, w6=w6: cudnn_chain(x, w6),
              library_name="the bf16 cuDNN chain")
+
+    # the video phase's frame, 1344x768 (1280x720 padded), under the paths'
+    # move: K1 on the frames, K7 on the context, K2 depth-weighted, K3 and
+    # K4; compared, not timed (the video phase times the video driver); own
+    # draws, so the cases above keep their inputs
+    gv, rngv = torch.Generator().manual_seed(7), np.random.RandomState(7)
+    hv, wv = VIDEO_PADDED
+    flow_v = _t(geo.smooth_flow(rngv, N, hv, wv, 0.5, (5.3, -3.1)), dev)
+    filt_v = torch.randn(N, 16, hv, wv, generator=gv).to(dev)
+    for c in (3, C_CTX):
+        img = torch.rand(N, c, hv, wv, generator=gv).to(dev)
+        _compare(f"{FI.forward_kernel(c)} C={c} at {tuple(img.shape)}",
+                 FI.filter_interpolate(img, flow_v, filt_v),
+                 FI.filter_interpolate_plain(img, flow_v, filt_v))
+        del img
+    acc_v, _, _ = _compare_scatter(
+        "K2 depth-weighted, the video frame", flow_v,
+        _t(geo.depth_weight(rngv, N, hv, wv), dev))
+    _compare_k3(f"flow_project_finalize at {tuple(acc_v.shape)}",
+                FP.finalize(acc_v), FP.finalize_plain(acc_v))
+    shape_v = (1, 128, hv, wv)
+    _compare_k4(shape_v, *(t.to(dev) for t in _trunk_inputs(gv, shape_v)))
     torch.cuda.synchronize()
     return cases
 
@@ -1035,14 +1131,19 @@ def _profile_whole(unit, fn, reps, kernel_names):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    if not events:
-        raise AssertionError("torch.profiler recorded no device events")
+    # a session may now and then record no device event: up to 3 sessions
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device events in "
+                             "3 sessions")
     busy, span = _busy(events)
     print(f"[profile] {reps} {unit}s under torch.profiler: "
           f"{len(events) // reps} device events a {unit}, busy "
@@ -1469,11 +1570,12 @@ def phase_device_times(cases, times) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     for key, c in cases.items():
-        # the profiler may drop a session's first events: 20 calls, and the
-        # median of what it records, at least 10 launches (a second session
-        # where the first recorded fewer)
+        # the profiler may drop a session's first events, now and then all
+        # of them (two sessions in a row recorded no launch of K2 at
+        # 2x37x76): sessions of 20 calls until one records at least 10
+        # launches, at most 5, and the median of what that one records
         per_call = c["per_call"]
-        for _ in range(2):
+        for session in range(1, 6):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(20):
                     c["fn"]()
@@ -1484,7 +1586,8 @@ def phase_device_times(cases, times) -> None:
                 break
         if not 10 <= len(dev_us) <= 20 * per_call:
             raise AssertionError(f"{key}: {len(dev_us)} launches of "
-                                 f"{c['kernel']} recorded in 20 calls")
+                                 f"{c['kernel']} recorded in 20 calls, in "
+                                 f"each of {session} sessions")
         launch_ms = statistics.median(dev_us) / 1000
         ms = times[key]["ms"] = launch_ms * per_call
         bound = times[key]["bound_ms"]
@@ -1492,8 +1595,9 @@ def phase_device_times(cases, times) -> None:
                 f" ({per_call} launches of {launch_ms * 1000:.2f} us)")
         if per_call > 1:
             times[key]["ms_per_launch"] = launch_ms
+        which = "" if session == 1 else f" in session {session}"
         print(f"[times] {key} ({c['kernel']}): device {ms * 1000:.2f} us a "
-              f"call{each} (median of {len(dev_us)} launches), bound "
+              f"call{each} (median of {len(dev_us)} launches{which}), bound "
               f"{bound * 1000:.2f} us: {bound / ms:.1%} of it")
         if c["library"] is not None:
             lib_ms, events = _device_ms_a_call(c["library"])
@@ -1708,6 +1812,385 @@ def phase_middlebury(dev: torch.device):
     return launches
 
 
+def make_clip(g: torch.Generator, n: int, h: int, w: int) -> list:
+    """``n`` frames of a smooth random scene as make_frames makes it, each
+    moved (5, -3) px from the last, (h, w, 3) uint8."""
+    scene = F.interpolate(torch.rand(1, 3, h // 16 + 1, w // 16 + 1,
+                                     generator=g),
+                          size=(h + 3 * n, w + 5 * n), mode="bicubic",
+                          align_corners=False).clamp(0, 1)[0]
+    return [torch.round(scene[:, 3 * (n - 1 - k):3 * (n - 1 - k) + h,
+                              5 * k:5 * k + w] * 255).to(torch.uint8)
+            .permute(1, 2, 0).contiguous().numpy() for k in range(n)]
+
+
+def _median_s(fn, reps=3) -> float:
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times)
+
+
+def phase_png_times(frames, tmp: Path) -> None:
+    """The host's PNG times on the clip's frames: write_png, read_png of
+    its files (Up rows), and read_png of the frame filtered as PIL's
+    encoder filters it (torch_png.pil_kinds: mostly Paeth on these frames,
+    decoded diagonal by diagonal) at 1280x720 and at Vimeo-90K's 256x448."""
+    frame = frames[0]
+    path = tmp / "write.png"
+    t_write = _median_s(lambda: write_png(path, frame), 5)
+    t_read = _median_s(lambda: read_png(path), 5)
+    if not np.array_equal(read_png(path), frame):
+        raise AssertionError("write_png / read_png do not round-trip")
+    print(f"[video] write_png {VIDEO_W}x{VIDEO_H} RGB (Up rows, zlib level "
+          f"{ZLIB_LEVEL}): "
+          f"{t_write * 1000:.3f} ms, {path.stat().st_size} bytes; read_png "
+          f"of it {t_read * 1000:.3f} ms (medians of 5, host clock)")
+    for label, img in ((f"{VIDEO_W}x{VIDEO_H}", frame),
+                       ("448x256", frame[:256, :448])):
+        kinds = torch_png.pil_kinds(img)
+        pil = tmp / "pil.png"
+        pil.write_bytes(torch_png.png_bytes(img, kinds))
+        if not np.array_equal(read_png(pil), img):
+            raise AssertionError("the PIL-filtered frame decodes wrong")
+        t_pil = _median_s(lambda: read_png(pil))
+        print(f"[video] read_png of a {label} frame filtered as PIL filters "
+              f"it (rows per filter None/Sub/Up/Avg/Paeth "
+              f"{np.bincount(kinds, minlength=5).tolist()}): "
+              f"{t_pil * 1000:.3f} ms (median of 3, host clock)")
+
+
+def _run_captured(tag, fn, argv):
+    """``fn(argv)`` with its standard output and error captured and echoed
+    under ``[tag]``; returns (result, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = fn(argv)
+    for line in (out.getvalue() + err.getvalue()).splitlines():
+        print(f"[{tag}] | {line}")
+    return result, out.getvalue(), err.getvalue()
+
+
+def _video_reference(model, frames, dev) -> list:
+    """Each pair's synthesised frames from ``model`` run in memory on the
+    same padded frames: round(clip(unpad(forward))), (H, W, 3) uint8."""
+    want = []
+    to = lambda f: torch.from_numpy(f).to(dev).permute(2, 0, 1)[None] \
+        .contiguous().float() / 255.0
+    with torch.inference_mode():
+        for a, b in zip(frames[:-1], frames[1:]):
+            ap_, pads = pad_to_multiple(to(a))
+            bp_, _ = pad_to_multiple(to(b))
+            if tuple(ap_.shape[2:]) != VIDEO_PADDED:
+                raise AssertionError(f"padded to {tuple(ap_.shape[2:])}")
+            for o in model(ap_, bp_)["outputs"][1]:
+                want.append((torch.round(unpad(o, pads).clamp(0, 1) * 255)
+                             [0].permute(1, 2, 0).to(torch.uint8).cpu()
+                             .numpy()))
+    return want
+
+
+def _level_diff(got, want) -> np.ndarray:
+    """|got - want| in 8-bit levels over lists of uint8 frames."""
+    return np.stack([np.abs(a.astype(np.int16) - b.astype(np.int16))
+                     for a, b in zip(got, want)])
+
+
+def write_pil_filtered(path, frame) -> None:
+    """``frame`` as a PNG whose rows are filtered as PIL's encoder filters
+    them (torch_png.pil_kinds: mostly Paeth), as users' frames come."""
+    Path(path).write_bytes(torch_png.png_bytes(frame, "pil"))
+
+
+@contextlib.contextmanager
+def run_to_run_stable():
+    """The slow-motion forward with its two sums in any order made
+    deterministic: K2 summed on the host, and cuDNN held to deterministic
+    algorithms (its default for a transposed convolution sums in any
+    order)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with k2_summed_on_the_host():
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def k2_summed_on_the_host():
+    """K2 replaced by its plain version run on the CPU, which sums each
+    cell's adds in index order: the same sums on every run."""
+    launch = FP._launch_scatter4
+
+    def plain(flow, weight, direct_tiles=None):
+        return FP.scatter4_plain(
+            flow.cpu(), None if weight is None else weight.cpu()).to(
+            flow.device)
+
+    FP._launch_scatter4 = plain
+    try:
+        yield
+    finally:
+        FP._launch_scatter4 = launch
+
+
+def _run_video_driver(in_dir, out_dir, pth, lane, dev, path) -> tuple:
+    """interpolate_video.main on ``in_dir`` in ``lane``, its launches held
+    to PATHS[path]: (summary, its decode / forward / encode seconds, the
+    peak and the held memory in GiB)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    summary, _, err = _run_captured("video", interpolate_video.main, [
+        "--frames-dir", str(in_dir), "--out-dir", str(out_dir),
+        "--model", "DAIN_slowmotion", "--time-step", str(SLOWMO_T),
+        "--torch-checkpoint", str(pth), "--compute-dtype", lane,
+        "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[video] {lane} lane launches: {launches}")
+    _check_launches(path, launches)
+    return summary, json.loads(err.strip().splitlines()[-1]), peak, held
+
+
+def _print_video_times(label, lane, summary, stages, peak, held) -> None:
+    wall = summary["wall_s"]
+    split = ", ".join(f"{k[:-2]} {v:.3f} s ({v / wall:.1%})"
+                      for k, v in stages.items())
+    print(f"[times] video driver {VIDEO_W}x{VIDEO_H} (run at "
+          f"{VIDEO_PADDED[1]}x{VIDEO_PADDED[0]}), DAINSlowMotion("
+          f"{SLOWMO_T}) {lane}, {VIDEO_FRAMES} PNG frames in ({label}), "
+          f"{summary['interpolated_frames']} synthesised: "
+          f"interp_frames_per_sec {summary['interp_frames_per_sec']:.4f}"
+          f" (wall {wall:.3f} s, the first pair's set-up included); "
+          f"driver's timers: {split}; peak memory {peak:.3f} GiB, "
+          f"of which {held:.3f} GiB held before the run")
+
+
+def phase_video(dev: torch.device) -> dict:
+    """The video driver (vfidkr_torch.apps.interpolate_video.main) on a
+    4-frame 1280x720 PNG clip filtered as PIL filters it, DAINSlowMotion(0.25)
+    from a reference-layout .pth of make_slowmo_model's weights, in the
+    float32 lane and in the bf16 lane: the files, the pass-through frames,
+    each synthesised frame against the same model run in memory, the
+    launches, frames/s and the driver's decode / forward / encode split,
+    peak memory.  In the bf16 lane also: the in-memory forward's own
+    run-to-run spread, and two runs with K2 summed on the host and cuDNN
+    deterministic, which must agree bit for bit; and, as a second reading,
+    the driver on the clip written by the port's own writer (Up rows).
+    Returns each lane's launches."""
+    frames = make_clip(torch.Generator().manual_seed(1), VIDEO_FRAMES,
+                       VIDEO_H, VIDEO_W)
+    f32 = make_slowmo_model()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="vfidkr_video_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "in").mkdir()
+        (tmp / "in_up").mkdir()
+        for k, frame in enumerate(frames, start=1):
+            write_pil_filtered(tmp / "in" / f"{k:05d}.png", frame)
+            write_png(tmp / "in_up" / f"{k:05d}.png", frame)
+        phase_png_times(frames, tmp)
+        pth = tmp / "slowmo.pth"
+        torch.save(reference_state_dict(f32), pth)
+        f32 = f32.to(dev)
+        names = sorted([f"{i:05d}000.png" for i in range(1, VIDEO_FRAMES + 1)]
+                       + [f"{i:05d}{j:03d}.png" for i in range(1, VIDEO_FRAMES)
+                          for j in range(1, round(1 / SLOWMO_T))])
+        for lane, path in (("float32", "video_slowmo"),
+                           ("bfloat16", "video_slowmo_bf16")):
+            out_dir = tmp / lane
+            summary, stages, peak, held = _run_video_driver(
+                tmp / "in", out_dir, pth, lane, dev, path)
+            launches[path] = dict(kernels.LAUNCHES)
+            if sorted(os.listdir(out_dir)) != names:
+                raise AssertionError(f"video {lane}: files "
+                                     f"{sorted(os.listdir(out_dir))}")
+            for i, frame in enumerate(frames, start=1):
+                if not np.array_equal(read_png(out_dir / f"{i:05d}000.png"),
+                                      frame):
+                    raise AssertionError(f"video {lane}: pass-through frame "
+                                         f"{i} differs from the input")
+            model = f32 if lane == "float32" else _bf16_twin(f32)
+            want = _video_reference(model, frames, dev)
+            got = [read_png(out_dir / n) for n in names
+                   if not n.endswith("000.png")]
+            diff = _level_diff(got, want)
+            levels, share = VIDEO_LEVELS[lane], float((diff > 0).mean())
+            print(f"[video] {lane} lane: {len(names)} files; pass-through "
+                  f"frames equal to the input; the {len(got)} synthesised "
+                  f"frames against the same model in memory: max |diff| "
+                  f"{int(diff.max())} levels, {int((diff > 0).sum())} of "
+                  f"{diff.size} values differ ({share:.4%}; bound: "
+                  f"{levels} levels, {VIDEO_SHARE:.1%})")
+            if diff.max() > levels or share > VIDEO_SHARE:
+                raise AssertionError(f"video {lane}: a frame is "
+                                     f"{int(diff.max())} levels off, "
+                                     f"{share:.4%} of the values differ")
+            if lane == "bfloat16":
+                own = _level_diff(_video_reference(model, frames, dev), want)
+                with run_to_run_stable():
+                    once = _video_reference(model, frames, dev)
+                    again = _level_diff(_video_reference(model, frames, dev),
+                                        once)
+                print(f"[video] bf16 lane in memory against itself: max "
+                      f"{int(own.max())} levels, {int((own > 0).sum())} "
+                      f"values differ; with K2 summed on the host and cuDNN "
+                      f"deterministic, run twice: max {int(again.max())} "
+                      f"levels, {int((again > 0).sum())} values differ")
+                if again.any():
+                    raise AssertionError("the bf16 lane changes from run to "
+                                         "run with its sums made "
+                                         "deterministic")
+            _print_video_times("filtered as PIL filters them", lane,
+                               summary, stages, peak, held)
+            del model
+        summary, stages, peak, held = _run_video_driver(
+            tmp / "in_up", tmp / "bf16_up", pth, "bfloat16", dev,
+            "video_slowmo_bf16")
+        if sorted(os.listdir(tmp / "bf16_up")) != names:
+            raise AssertionError("video bf16 (Up rows): files differ")
+        _print_video_times("the port's own writer: Up rows", "bfloat16",
+                           summary, stages, peak, held)
+    return launches
+
+
+def _epoch_ms_per_step(stdout: str, steps: int) -> dict:
+    return {int(e): float(t) * 1000 / steps for e, t in re.findall(
+        r"epoch (\d+) took ([0-9.]+)s", stdout)}
+
+
+def _train_argv(data, save, dev) -> list:
+    return ["--dataset-path", str(data), "--save-path", str(save),
+            "--batch-size", str(TRAIN_B), "--steps-per-epoch",
+            str(DISK_STEPS), "--val-batches", "1", "--patience",
+            str(DISK_PATIENCE), "--factor", str(DISK_FACTOR), "--device",
+            str(dev)]
+
+
+def _print_disk_times(label, out, step_ms, steps=DISK_READ_STEPS) -> None:
+    per = _epoch_ms_per_step(out, steps)
+    print(f"[times] DAIN train step from disk, B={TRAIN_B} {DISK_HW[0]}x"
+          f"{DISK_HW[1]} float32, PNGs {label} "
+          f"(epoch time / {steps} steps, host clock): "
+          + ", ".join(f"epoch {e} {ms:.3f} ms/step" for e, ms in per.items())
+          + f"; in memory {step_ms:.3f} ms/step (the train phase's median)")
+
+
+def phase_train_from_disk(dev: torch.device, step_ms: float) -> None:
+    """The trainer (vfidkr_torch.apps.train.main) on 18 synthetic triplets
+    written by vfidkr_torch.data.synthetic and re-encoded with PIL's row
+    filters: 2 epochs of 4 steps at B=3, then --resume to 3: the epoch
+    seam, the Adamax step count and the plateau state carried over the
+    resume, and its ms/step from disk beside the in-memory train step's;
+    then, as a second reading, 2 epochs on the triplets as the port's
+    writer wrote them (Up rows)."""
+    with tempfile.TemporaryDirectory(prefix="vfidkr_disk_") as tmp:
+        up, data, save = (Path(tmp) / n for n in ("vimeo_up", "vimeo", "run"))
+        _run_captured("train_from_disk", synthetic.main, [
+            "--out", str(up), "--n", str(DISK_TRIPLETS), "--height",
+            str(DISK_HW[0]), "--width", str(DISK_HW[1]), "--test-frac",
+            "0.34"])
+        for src in sorted(up.rglob("*")):
+            dst = data / src.relative_to(up)
+            if src.is_dir():
+                dst.mkdir(parents=True, exist_ok=True)
+            elif src.suffix == ".png":
+                write_pil_filtered(dst, read_png(src))
+            else:
+                dst.write_bytes(src.read_bytes())
+        argv = _train_argv(data, save, dev)
+        _, out_a, _ = _run_captured("train_from_disk", train_app.main,
+                                    argv + ["--num-epochs", "2"])
+        first = torch.load(save / "epoch1.pth", weights_only=True)
+        _, out_b, _ = _run_captured("train_from_disk", train_app.main,
+                                    argv + ["--num-epochs", "3", "--resume"])
+        last = torch.load(save / "epoch2.pth", weights_only=True)
+        rows = np.loadtxt(save / "log.txt", delimiter=",", ndmin=2)
+        read = ["--num-epochs", "2", "--steps-per-epoch",
+                str(DISK_READ_STEPS)]
+        readings = {}
+        for label, root, run in (
+                ("filtered as PIL filters them, 4 decode workers", data,
+                 train_app.main),
+                ("filtered as PIL filters them, decoded on the prefetch "
+                 "thread", data,
+                 lambda argv: train_app.train(train_app.parse_args(argv))),
+                ("as the port's writer wrote them (Up rows), 4 decode "
+                 "workers", up, train_app.main)):
+            _, readings[label], _ = _run_captured(
+                "train_from_disk", run,
+                _train_argv(root, Path(tmp) / f"run{len(readings)}", dev)
+                + read)
+    epochs = rows[:, 0].astype(int).tolist()
+    steps = {int(s["step"]) for s in last["optimizer"]["state"].values()}
+    want_plateau = plateau_step(PlateauState(**first["plateau"]), rows[2, 3],
+                                factor=DISK_FACTOR, patience=DISK_PATIENCE)
+    print(f"[train_from_disk] log.txt epochs {epochs}, lr scales "
+          f"{rows[:, 1].tolist()}; after the resume every Adamax state has "
+          f"taken {sorted(steps)} steps; plateau after epoch 1 "
+          f"{first['plateau']}, after epoch 2 {last['plateau']}")
+    if epochs != [0, 1, 2]:
+        raise AssertionError(f"epoch seam broken: {epochs}")
+    if "resumed from epoch1" not in out_b:
+        raise AssertionError("the second run did not resume from epoch1")
+    if steps != {3 * DISK_STEPS}:
+        raise AssertionError(f"Adamax steps {steps}: the resume did not "
+                             f"restore the optimizer state")
+    # log.txt keeps 8 decimals of the validation loss that set "best"
+    got_plateau = PlateauState(**last["plateau"])
+    if rows[2, 1] != first["plateau"]["scale"] or \
+            got_plateau._replace(best=0.0) != want_plateau._replace(best=0.0) \
+            or not math.isclose(got_plateau.best, want_plateau.best,
+                                rel_tol=1e-6):
+        raise AssertionError("the resume did not restore the plateau state")
+    _print_disk_times("filtered as PIL filters them, 4 decode workers, "
+                      "the resumed run", out_a + out_b, step_ms, DISK_STEPS)
+    for label, out in readings.items():
+        _print_disk_times(label, out, step_ms)
+
+
+def make_depth_samples(rng: np.random.RandomState) -> list:
+    """Two depth-eval samples at DEPTH_HW as load_sample leaves them: a
+    smooth image, a smooth depth in [0.5, 10.5] with an invalid band (mask
+    0, depth 1.0), and DEPTH_SDR_PAIRS ordinal pairs."""
+    h, w = DEPTH_HW
+    samples = []
+    for _ in range(2):
+        img = np.kron(rng.rand(h // 16, w // 16, 3), np.ones((16, 16, 1)))
+        depth = np.kron(rng.rand(h // 32, w // 32), np.ones((32, 32))) * 10
+        mask = np.ones((h, w), np.float32)
+        mask[:12] = 0.0
+        gt = np.where(mask > 0, depth + 0.5, 1.0).astype(np.float32)
+        sdr = {k: rng.randint(0, n, DEPTH_SDR_PAIRS)
+               for k, n in (("xA", w), ("yA", h), ("xB", w), ("yB", h))}
+        sdr["gt"] = rng.randint(-1, 2, DEPTH_SDR_PAIRS)
+        samples.append((img.astype(np.float32), gt, mask, sdr))
+    return samples
+
+
+def phase_depth(dev: torch.device) -> None:
+    """The depth-eval core (vfidkr_torch.apps.depth_eval.evaluate_depth) on
+    MegaDepth from seed 0, two samples at 256x320, on the card and on the
+    CPU: the si-RMSE within rtol 1e-4, the SDR counts equal."""
+    samples = make_depth_samples(np.random.RandomState(5))
+    model = MegaDepthHourglass(generator=torch.Generator().manual_seed(0))
+    want = evaluate_depth(model.eval(), samples, "cpu")
+    got = evaluate_depth(copy.deepcopy(model).to(dev), samples, dev)
+    print(f"[depth] {DEPTH_HW[1]}x{DEPTH_HW[0]}, 2 samples: card {got}; CPU "
+          f"{want}")
+    if not math.isclose(got["si_rmse"], want["si_rmse"], rel_tol=1e-4) or \
+            got["sdr"] != want["sdr"] or got["images"] != 2:
+        raise AssertionError("depth eval: the card and the CPU disagree")
+    if not 0 < got["sdr"]["total"] < 1:
+        raise AssertionError("depth eval: the SDR classes are degenerate")
+
+
 def phase_bf16_stages(dev: torch.device, eval_model, slowmo_model, i0, i2):
     """Where the bf16 lane's time goes, each stage on its own inputs (CUDA
     events, median of 15 after 3 warm-up): MonoNet5 and the heads, S2DF,
@@ -1778,6 +2261,12 @@ def main() -> None:
     mb_launches = phase_middlebury(dev)
     print(f"[time] the bf16 paths checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
+    video_launches = phase_video(dev)
+    print(f"[time] the video phase: {time.perf_counter() - t0:.1f} s")
+    phase_train_from_disk(dev, step_ms)
+    phase_depth(dev)
+    print(f"[time] the drivers' phases checked and timed: "
+          f"{time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
     phase_bf16_stages(dev, eval_bf16, slowmo_bf16, i0, i2)
@@ -1795,7 +2284,7 @@ def main() -> None:
                 "eval_forward_bf16": eval_bf16_launches,
                 "slowmo_forward_bf16": slowmo_bf16_launches,
                 "middlebury_bf16": mb_launches,
-                "slowmo_train_step": smt_launches}
+                "slowmo_train_step": smt_launches, **video_launches}
     print(f"[launches] {per_path}")
     rows = []
     for name, (src, rep) in KERNELS.items():

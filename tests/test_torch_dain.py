@@ -119,7 +119,10 @@ def test_port_imports_no_jax():
             "vfidkr_torch.training, vfidkr_torch.data.vimeo90k, "
             "vfidkr_torch.apps.train, vfidkr_torch.apps.demo_middlebury, "
             "vfidkr_torch.apps.eval_vimeo, vfidkr_torch.config, "
-            "vfidkr_torch.utils, vfidkr_torch.ops.rectify; "
+            "vfidkr_torch.utils, vfidkr_torch.ops.rectify, "
+            "vfidkr_torch.utils.image_io, vfidkr_torch.utils.depth_eval, "
+            "vfidkr_torch.data.synthetic, vfidkr_torch.apps.depth_eval, "
+            "vfidkr_torch.apps.interpolate_video; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'jaxlib', 'vfidkr_tpu')); "
             "assert not bad, bad")

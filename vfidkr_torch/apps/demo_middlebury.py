@@ -15,8 +15,9 @@ Usage:
 
 ``--compute-dtype bfloat16`` selects the fast-eval lane.  It runs on the
 card unless asked for the CPU (``--device cpu``).  Without a checkpoint the
-weights are random (seed 0).  The CLI reads and writes PNGs with PIL;
-``evaluate`` is the in-memory core, which takes frame arrays.
+weights are random (seed 0).  The CLI reads and writes PNGs without PIL
+(``vfidkr_torch.utils.image_io``); ``evaluate`` is the in-memory core,
+which takes frame arrays.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from vfidkr_torch.config import (add_device_flag, add_model_flags,
                                  build_eval_model)
 from vfidkr_torch.utils import (interpolation_error, pad_to_multiple, psnr,
                                 ssim, unpad)
+from vfidkr_torch.utils.image_io import read_rgb, write_png
 
 
 def to_tensor(frame: np.ndarray, device) -> torch.Tensor:
@@ -133,15 +135,13 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from PIL import Image
-
     model = build_eval_model(args)
     seqs = sorted(d for d in os.listdir(args.root)
                   if os.path.isdir(os.path.join(args.root, d)))
 
     def load(seq, name):
-        with Image.open(os.path.join(args.root, seq, name)) as im:
-            return np.asarray(im.convert("RGB"), np.float32) / 255.0
+        return np.asarray(read_rgb(os.path.join(args.root, seq, name)),
+                          np.float32) / 255.0
 
     pairs = ((seq, load(seq, args.first), load(seq, args.second),
               load(seq, args.gt)) for seq in seqs)
@@ -150,8 +150,8 @@ def main(argv=None) -> dict:
     for r in results:
         if args.out_dir:
             os.makedirs(os.path.join(args.out_dir, r["name"]), exist_ok=True)
-            Image.fromarray(r["frame"]).save(
-                os.path.join(args.out_dir, r["name"], args.gt))
+            write_png(os.path.join(args.out_dir, r["name"], args.gt),
+                      r["frame"])
         print(f"{r['name']}: IE {r['ie']:.4f} PSNR {r['psnr']:.4f} "
               f"SSIM {r['ssim']:.5f}", file=sys.stderr)
     print(json.dumps(summary))

@@ -18,8 +18,12 @@ Usage:
       [--lr 2e-3] [--device cuda] ...
 
 It trains on the card (``--device`` defaults to ``cuda``) unless asked for
-the CPU (``--device cpu``); nothing falls back.  Decoding the PNG frames
-needs PIL.
+the CPU (``--device cpu``); nothing falls back.  The PNG frames are decoded
+without PIL (``vfidkr_torch.utils.image_io``).  On the card they are decoded
+in up to 4 worker processes (``vfidkr_torch.data.vimeo90k.decode_pool``): a
+batch of PIL-written frames takes the decoder's diagonal walk, and on one
+thread it outlasts the step.  On the CPU, which trains on every core, they
+are decoded on the prefetch thread.
 """
 
 from __future__ import annotations
@@ -69,6 +73,15 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    from vfidkr_torch.data.vimeo90k import decode_pool
+    workers = (min(4, (os.cpu_count() or 1) - 1)
+               if torch.device(args.device).type == "cuda" else 0)
+    with decode_pool(workers) as pool:
+        train(args, pool)
+
+
+def train(args, pool=None) -> None:
+    """The training run of ``args``, its frames decoded in ``pool``."""
     from vfidkr_torch.data.vimeo90k import (train_batches, val_batches,
                                             vimeo90k_splits)
     from vfidkr_torch.models import DAIN, DAINSlowMotion
@@ -146,7 +159,7 @@ def main(argv=None) -> None:
         train_losses = []
         for i, batch in enumerate(train_batches(
                 args.dataset_path, train_paths, args.batch_size, steps,
-                args.seed, epoch)):
+                args.seed, epoch, pool)):
             metrics = train_step(model, optimizer, to_dev(batch), config,
                                  plateau.scale)
             train_losses.append(float(metrics["total"]))
@@ -157,11 +170,11 @@ def main(argv=None) -> None:
                       f"Sym {float(metrics['sym']):.4f} "
                       f"Total {float(metrics['total']):.5f}")
         train_avg = float(np.mean(train_losses)) if train_losses else 0.0
-        print(f"***** epoch {epoch} took {time.time() - t0:.1f}s *****")
+        print(f"***** epoch {epoch} took {time.time() - t0:.3f}s *****")
 
         vals, psnrs = [], []
         for batch in val_batches(args.dataset_path, test_paths,
-                                 args.batch_size, val_steps):
+                                 args.batch_size, val_steps, pool):
             m = eval_step(model, to_dev(batch), config)
             vals.append(float(m["total"]))
             psnrs.append(float(m["psnr"]))

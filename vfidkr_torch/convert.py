@@ -222,6 +222,17 @@ def invert_dain_state_dict(
     return out, missing
 
 
+def reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` as a reference checkpoint holds it: the
+    port's keys are the reference's, and PWC-Net's ``deconv2``, which nothing
+    calls, is added as zeros, so the JAX package's converter reads the
+    result."""
+    sd = dict(model.state_dict())
+    if any(k.startswith("flownets.") for k in sd):
+        sd.update({k: torch.zeros(s) for k, s in _PWC_DECONV2.items()})
+    return sd
+
+
 def load_jax_variables(model: nn.Module, variables: dict) -> list[str]:
     """Load the flax ``variables`` tree (numpy arrays, e.g. from
     ``jax.device_get(DAIN().init(...))``) into ``model`` and return the
@@ -229,10 +240,8 @@ def load_jax_variables(model: nn.Module, variables: dict) -> list[str]:
     except the BN ``num_batches_tracked`` counters, which keep the model's
     own values."""
     state = model.state_dict()
-    template = {k: v.detach().cpu().numpy() for k, v in state.items()}
-    if any(k.startswith("flownets.") for k in template):
-        template.update({k: np.zeros(s, np.float32)
-                         for k, s in _PWC_DECONV2.items()})
+    template = {k: v.detach().cpu().numpy()
+                for k, v in reference_state_dict(model).items()}
     sd, missing = invert_dain_state_dict(variables, template)
     missing = [k for k in missing if k not in _PWC_DECONV2
                and not k.endswith(_NO_COUNTERPART)]

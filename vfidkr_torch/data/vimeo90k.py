@@ -12,7 +12,11 @@ The port's own copy of the JAX package's framework-free pipeline
   256x448 (a no-op at the native size), random left-right and up-down
   flips, drawn in that order from one ``RandomState``;
 * a balanced sampler: an endless stream of reshuffled permutations;
-* a background prefetch thread.
+* a background prefetch thread;
+* optionally, a pool of worker processes that decode a batch's frames
+  (``decode_pool``): a frame whose rows are Average- or Paeth-filtered, as
+  PIL's and most encoders' are, takes the decoder's diagonal walk, and a
+  batch's nine of them on one thread take longer than a train step.
 
 For the same seed the batches equal the JAX package's.  The JAX package's
 optional C++ augment (``native/``) is not used: the Python path makes the
@@ -22,21 +26,31 @@ frame), x1 (last frame) and y (the middle frame, the target), (B,3,H,W) in
 
 Each training epoch draws from a sampler seeded by ``(seed, epoch)``, so a
 run resumed at epoch k sees the batches an uninterrupted run sees there.
-Decoding the PNG frames needs PIL.
+The frames are decoded by ``vfidkr_torch.utils.image_io`` (PNG without
+PIL); the augmentation's random draws stay in the calling thread, in the
+reference's order, wherever the frames are decoded.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import multiprocessing
 import os
 import queue
+import signal
 import threading
+from concurrent.futures import Executor, ProcessPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["BalancedSampler", "Vimeo90KDataset", "epoch_seed", "load_triplet",
-           "prefetch", "read_triplet_list", "to_tensors", "train_batches",
+from vfidkr_torch.utils.image_io import read_rgb
+
+__all__ = ["BalancedSampler", "Vimeo90KDataset", "augment_triplet",
+           "decode_pool", "epoch_seed", "load_triplet", "prefetch",
+           "read_frames", "read_triplet_list", "to_tensors", "train_batches",
            "val_batches", "vimeo90k_splits"]
 
 CROP_HW = (256, 448)
@@ -69,22 +83,60 @@ def vimeo90k_splits(root: str, train_list: str = "tri_trainlist.txt",
     return train, test
 
 
-def _imread(path: str) -> np.ndarray:
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+TRIPLET = ("im1.png", "im2.png", "im3.png")
 
 
-def load_triplet(root: str, rel: str, augment: bool,
-                 rng: np.random.RandomState,
-                 crop_hw: Tuple[int, int] = CROP_HW):
-    """One (x0, x1, y) sample, NHWC float32, with the reference
-    augmentations."""
-    seq = os.path.join(root, "sequences", rel)
-    names = ["im1.png", "im2.png", "im3.png"]
+def _die_with_parent(prctl, parent: int) -> None:
+    """A decode worker's initializer: on Linux, be killed when the thread
+    that forked it ends (the trainer's main thread), so a killed trainer
+    leaves no worker behind."""
+    if prctl is None:                      # not Linux: no PR_SET_PDEATHSIG
+        return
+    prctl(1, signal.SIGKILL)
+    if os.getppid() != parent:             # it ended before the prctl
+        os._exit(0)
+
+
+@contextlib.contextmanager
+def decode_pool(workers: int):
+    """A pool of ``workers`` processes that decode frames, or None for 0.
+    The workers are forked at once from the calling thread (the main
+    thread: each dies with it) and only decode (numpy and zlib: they touch
+    no CUDA state); they are shut down on leaving the context."""
+    if workers <= 0:
+        yield None
+        return
+    try:   # resolved here: a forked child then loads no symbol
+        prctl = ctypes.CDLL(None, use_errno=True).prctl
+    except (OSError, AttributeError):
+        prctl = None
+    pool = ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("fork"),
+        initializer=_die_with_parent, initargs=(prctl, os.getpid()))
+    try:
+        pool.submit(int).result()          # every worker forked here
+        yield pool
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def read_frames(paths: Sequence[str], pool: Optional[Executor] = None
+                ) -> List[np.ndarray]:
+    """(H, W, 3) uint8 frames of ``paths``, in order, decoded in ``pool``
+    where one is given."""
+    if pool is None:
+        return [read_rgb(p) for p in paths]
+    return list(pool.map(read_rgb, paths))
+
+
+def augment_triplet(frames: Sequence[np.ndarray], augment: bool,
+                    rng: np.random.RandomState,
+                    crop_hw: Tuple[int, int] = CROP_HW):
+    """im1, im2, im3 -> one (x0, x1, y) sample, NHWC float32, with the
+    reference augmentations, drawn from ``rng`` in the reference's order."""
+    first, mid, last = frames
     if augment and rng.randint(0, 2):
-        names = names[::-1]                          # temporal swap
-    first, mid, last = (_imread(os.path.join(seq, n)) for n in names)
+        first, last = last, first                    # temporal swap
 
     ch, cw = crop_hw
     h, w = first.shape[:2]
@@ -100,6 +152,17 @@ def load_triplet(root: str, rel: str, augment: bool,
 
     to_f32 = lambda im: np.ascontiguousarray(im, dtype=np.float32) / 255.0
     return to_f32(first), to_f32(last), to_f32(mid)
+
+
+def load_triplet(root: str, rel: str, augment: bool,
+                 rng: np.random.RandomState,
+                 crop_hw: Tuple[int, int] = CROP_HW):
+    """One (x0, x1, y) sample, NHWC float32, with the reference
+    augmentations."""
+    seq = os.path.join(root, "sequences", rel)
+    return augment_triplet(read_frames([os.path.join(seq, n)
+                                        for n in TRIPLET]),
+                           augment, rng, crop_hw)
 
 
 class BalancedSampler:
@@ -128,8 +191,10 @@ class Vimeo90KDataset:
 
     def __init__(self, root: str, paths: Sequence[str], batch_size: int,
                  augment: bool = True, seed: int = 0,
-                 crop_hw: Tuple[int, int] = CROP_HW):
+                 crop_hw: Tuple[int, int] = CROP_HW,
+                 pool: Optional[Executor] = None):
         self.root = root
+        self.pool = pool
         self.paths = list(paths)
         self.batch_size = batch_size
         self.augment = augment
@@ -141,8 +206,12 @@ class Vimeo90KDataset:
         return len(self.paths)
 
     def _make_batch(self, idxs):
-        samples = [load_triplet(self.root, self.paths[i], self.augment,
-                                self.rng, self.crop_hw) for i in idxs]
+        frames = read_frames([
+            os.path.join(self.root, "sequences", self.paths[i], n)
+            for i in idxs for n in TRIPLET], self.pool)
+        samples = [augment_triplet(frames[3 * k:3 * k + 3], self.augment,
+                                   self.rng, self.crop_hw)
+                   for k in range(len(idxs))]
         x0, x1, y = (np.stack(s) for s in zip(*samples))
         return {"x0": x0, "x1": x1, "y": y}
 
@@ -197,17 +266,19 @@ def to_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def train_batches(root: str, paths: Sequence[str], batch_size: int,
-                  num_batches: int, seed: int,
-                  epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
+                  num_batches: int, seed: int, epoch: int,
+                  pool: Optional[Executor] = None
+                  ) -> Iterator[Dict[str, torch.Tensor]]:
     """One epoch of augmented, balanced-sampled training batches."""
     ds = Vimeo90KDataset(root, paths, batch_size, augment=True,
-                         seed=epoch_seed(seed, epoch))
+                         seed=epoch_seed(seed, epoch), pool=pool)
     return prefetch((to_tensors(b) for b in ds.batches(num_batches)), 2)
 
 
 def val_batches(root: str, paths: Sequence[str], batch_size: int,
-                num_batches: int) -> Iterator[Dict[str, torch.Tensor]]:
+                num_batches: int, pool: Optional[Executor] = None
+                ) -> Iterator[Dict[str, torch.Tensor]]:
     """The first ``num_batches`` validation batches, in order, unaugmented."""
-    ds = Vimeo90KDataset(root, paths, batch_size, augment=False)
+    ds = Vimeo90KDataset(root, paths, batch_size, augment=False, pool=pool)
     return prefetch((to_tensors(b)
                      for b in ds.batches(num_batches, sequential=True)), 2)

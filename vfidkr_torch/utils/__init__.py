@@ -1,4 +1,6 @@
-"""Evaluation helpers, NCHW: replication padding and the metrics."""
+"""Evaluation helpers, NCHW: replication padding and the metrics.  The
+frame files (``image_io``) and the depth metrics (``depth_eval``) are
+submodules."""
 
 from vfidkr_torch.utils.metrics import (interpolation_error, psnr,
                                         psnr_per_image, ssim, ssim_per_image)
