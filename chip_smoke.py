@@ -4,7 +4,8 @@ step, the DAIN_slowmotion 4x eval forward and the DAIN_slowmotion train step
 in float32, the same two eval forwards in the bf16 fast-eval lane, the
 Middlebury eval app's core in that lane, the N x video driver on a 1280x720
 PNG clip in both lanes, the trainer on PNG triplets from disk with a resume,
-and the depth-eval core, on one NVIDIA GPU through its eight hand-written
+the depth-eval core, the row-sharded op chains and video forward, and the
+data-parallel train step, on one NVIDIA GPU through its eight hand-written
 CUDA kernels, and check them.
 
 Run from the root of the repository, with no arguments:
@@ -84,6 +85,30 @@ session comes last (7), since host-bound timings read slower after one:
    at 256x320 on two samples with depths and SDR pairs, MegaDepth from
    seed 0, on the card and on the CPU: si-RMSE within rtol 1e-4, the SDR
    counts equal;
+5h. spatial_ops: the row-sharded op chains (vfidkr_torch.parallel.spatial)
+   at the video's padded 1x.x768x1344, 4 shards of the one card (a thread
+   and stream a shard), halo 32, make_flow with |fy| bounded to 28 px and
+   a zero-motion island across the shard edges: flow_project(hole_fill) ->
+   filter_interpolate at C = 3 (K2, K3, K1) and depth_flow_project(
+   hole_fill) -> the 196-channel warp (K2 weighted, K3, K7); each chain's
+   offsets held to its unsharded run on the card and its frame to the
+   unsharded warp of those offsets (ATOL), each of its launches to its
+   plain version on the same block and frame arguments (row0 < 0 on the
+   first shard; K3 bit for bit, with its interior rows and carries), the
+   launches exactly (4 of each a chain), and both chains' host wall times
+   sharded and not;
+5i. spatial_video: the video driver's sharded forward of DAINSlowMotion(0.25)
+   on the video phase's clip, 2 shards of the one card, halo 64, frames
+   padded by the sharded rule to 1408x768: launches exactly (2 x 3 pairs x
+   phase 4's), frames finite, frames/s sharded and not, peak memory in all
+   and a shard's (the forward on one shard's 1408x512 block alone), and
+   each frame's PSNR against the unsharded forward (reported, not bounded:
+   the tiled forward is JAX's approximation);
+5j. data_parallel: the trainer's data-parallel path (vfidkr_torch.parallel.
+   mesh) in a world-size-1 NCCL group made in this process (a file store),
+   3 DAIN train steps at B=3 256x448 against the one-process steps on the
+   same weights and batches (losses, the last gradients and the parameters
+   per leaf); with two or more cards, world size 2 as well;
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -222,6 +247,12 @@ DISK_TRIPLETS, DISK_STEPS, DISK_PATIENCE, DISK_FACTOR = 18, 4, 1, 0.2
 DISK_READ_STEPS = 10
 DISK_HW = (H, W)
 DEPTH_HW, DEPTH_SDR_PAIRS = (256, 320), 200   # the depth phase's samples
+# the row-sharded phases: the op chains at the video's padded frame in 4
+# shards of 192 rows with halo 32 (256 rows a block), |fy| bounded to 28 px;
+# the video's sharded forward in 2 shards with the driver's halo, 64
+SPATIAL_SHARDS, SPATIAL_HALO, SPATIAL_REACH = 4, 32, 28.0
+VIDEO_SHARDS, VIDEO_HALO = 2, 64
+DP_STEPS = 3                    # the data-parallel phase's train steps
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -288,6 +319,17 @@ PATHS["video_slowmo"] = {k: VIDEO_PAIRS * n
                          for k, n in PATHS["slowmo_forward"].items()}
 PATHS["video_slowmo_bf16"] = {k: VIDEO_PAIRS * n
                               for k, n in PATHS["slowmo_forward_bf16"].items()}
+# the two sharded op chains: K2, K3 once a shard each, K1 and K7 one chain
+# each
+PATHS["spatial_ops"] = {"flow_project_scatter": 2 * SPATIAL_SHARDS,
+                        "flow_project_finalize": 2 * SPATIAL_SHARDS,
+                        "filter_interpolate_fwd": SPATIAL_SHARDS,
+                        "filter_interpolate_ctx": SPATIAL_SHARDS}
+# the sharded slow-motion forward: each shard runs the whole network
+PATHS["spatial_video"] = {k: VIDEO_PAIRS * VIDEO_SHARDS * n
+                          for k, n in PATHS["slowmo_forward"].items()}
+PATHS["data_parallel"] = {k: DP_STEPS * n
+                          for k, n in PATHS["train_step"].items()}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1}
@@ -360,21 +402,22 @@ def _compare_k3(name, got, want) -> float:
     return _compare(name, got, want)
 
 
-def make_flow(g: torch.Generator) -> torch.Tensor:
+def make_flow(g: torch.Generator, n: int = N, h: int = H, w: int = W
+              ) -> torch.Tensor:
     """A smooth random flow up to +-24 px (slopes under 0.5, so the
     projection folds little), about 5% of pixels pushed out of the frame, and
-    the exact-border cases of both kernels' bounds."""
-    coarse = (torch.rand(N, 2, 3, 5, generator=g) * 2 - 1) * 24
-    flow = F.interpolate(coarse, size=(H, W), mode="bilinear",
+    the exact-border cases of both kernels' bounds; (n >= 2, 2, h, w)."""
+    coarse = (torch.rand(n, 2, 3, 5, generator=g) * 2 - 1) * 24
+    flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
                          align_corners=True)
-    out = torch.rand(N, H, W, generator=g) < 0.05
-    side = torch.where(torch.rand(N, H, W, generator=g) < 0.5, -1.0, 1.0)
-    flow[:, 0] = torch.where(out, flow[:, 0] + side * (W + 16), flow[:, 0])
-    flow[0, :, 20:40, W - 8] = torch.tensor([7.0, 0.0])[:, None]   # x2 == W-1
-    flow[0, :, H - 6, 100:140] = torch.tensor([0.0, 5.0])[:, None]  # y2 == H-1
-    flow[1, :, 30:40, 0] = torch.tensor([W / 2, 0.0])[:, None]     # |fx| == W/2
-    flow[1, :, 40:50, 0] = torch.tensor([W / 2 - 0.5, 0.0])[:, None]
-    flow[1, :, 50:60, 10] = torch.tensor([0.0, H / 2])[:, None]    # |fy| == H/2
+    out = torch.rand(n, h, w, generator=g) < 0.05
+    side = torch.where(torch.rand(n, h, w, generator=g) < 0.5, -1.0, 1.0)
+    flow[:, 0] = torch.where(out, flow[:, 0] + side * (w + 16), flow[:, 0])
+    flow[0, :, 20:40, w - 8] = torch.tensor([7.0, 0.0])[:, None]   # x2 == W-1
+    flow[0, :, h - 6, 100:140] = torch.tensor([0.0, 5.0])[:, None]  # y2 == H-1
+    flow[1, :, 30:40, 0] = torch.tensor([w / 2, 0.0])[:, None]     # |fx| == W/2
+    flow[1, :, 40:50, 0] = torch.tensor([w / 2 - 0.5, 0.0])[:, None]
+    flow[1, :, 50:60, 10] = torch.tensor([0.0, h / 2])[:, None]    # |fy| == H/2
     return flow
 
 
@@ -404,7 +447,7 @@ def _k1_direct(image, flow, filt):
     channels: to time K1 on the context tensors."""
     out = torch.empty_like(image)
     kernels.launch("filter_interpolate_fwd", image, flow, filt, out,
-                   *image.shape)
+                   *image.shape, 0, image.shape[2])
     return out
 
 
@@ -2237,6 +2280,397 @@ def phase_bf16_profile(eval_model, slowmo_model, i0, i2) -> None:
                        tuple(PATHS["slowmo_forward_bf16"]))
 
 
+# ---------------------------------------------------------------------------
+# row sharding and data parallelism
+# ---------------------------------------------------------------------------
+
+def _plain_of_launch(name, args):
+    """(kernel output, the plain version's output on the launch's own
+    inputs and frame arguments) of one recorded launch."""
+    if name == "flow_project_scatter":
+        flow, weight, acc, _, h, _, row0, hg, _ = args
+        return acc, FP.scatter4_plain(flow, weight, row0, hg)
+    if name == "flow_project_finalize":
+        acc, out, _, _, _, lo, hi, up, down = args
+        return out, FP.finalize_plain(acc, (lo, hi), up, down)
+    image, flow, filt, out = args[:4]
+    row0, hg = args[8:10]
+    return out, FI.filter_interpolate_plain(image, flow, filt, row0, hg)
+
+
+def spatial_flow(g: torch.Generator) -> torch.Tensor:
+    """make_flow at the video's padded frame, (1, 2, 768, 1344), its rows'
+    reach bounded to |fy| <= SPATIAL_REACH px (the halo's contract: the rows
+    are what is sharded; make_flow's |fx| is at most 24 px but on the pixels
+    it pushes out of the frame sideways, which land nowhere), with a
+    zero-motion island across the shard edges, whose rim leaves holes
+    there."""
+    h, w = VIDEO_PADDED
+    flow = make_flow(g, 2, h, w)[:1]
+    flow[:, 1].clamp_(-SPATIAL_REACH, SPATIAL_REACH)
+    flow[:, :, 150:450, 300:700] = 0.0
+    return flow.contiguous()
+
+
+def phase_spatial_ops(dev: torch.device) -> dict:
+    """The projection and warp chains row-sharded: (1, C, 768, 1344) in
+    SPATIAL_SHARDS shards on this one card (a thread and stream a shard)
+    with halo SPATIAL_HALO, |fy| <= SPATIAL_REACH.  flow_project(fill) ->
+    filter_interpolate at C = 3 (K2, K3, K1), and depth_flow_project(fill)
+    -> the 196-channel warp (K2 weighted, K3, K7).  Each chain's offsets
+    are held to the chain's unsharded on the card, its frame to the
+    unsharded warp of its offsets (ATOL, see _compare), each sharded launch
+    to its plain version on the same inputs and frame arguments (K3 bit for
+    bit), and the launches are counted exactly.  Returns the launches."""
+    from vfidkr_torch.parallel.spatial import spatial_shard_fn
+    g = torch.Generator().manual_seed(11)
+    h, w = VIDEO_PADDED
+    flow = spatial_flow(g).to(dev)
+    image = torch.rand(1, 3, h, w, generator=g).to(dev)
+    ctx = torch.rand(1, C_CTX, h, w, generator=g).to(dev)
+    filt = torch.randn(1, 16, h, w, generator=g).to(dev)
+    depth_inv = (1e-6 + torch.exp(-(torch.rand(1, 1, h, w, generator=g) * 4
+                                    - 1))).to(dev)
+
+    def chain(image, flow, filt):
+        offs = FP.flow_project(flow, hole_fill=True)
+        return offs, FI.filter_interpolate(image, offs, filt)
+
+    def depth_chain(ctx, flow, filt, depth_inv):
+        offs = FP.depth_flow_project(flow, depth_inv, hole_fill=True)
+        return offs, FI.filter_interpolate(ctx, offs, filt)
+
+    launches = dict.fromkeys(KERNELS, 0)
+    shards = [dev] * SPATIAL_SHARDS
+    for label, fn, ins in (("K2 K3 K1 C=3", chain, (image, flow, filt)),
+                           ("K2 weighted, K3, K7 C=196", depth_chain,
+                            (ctx, flow, filt, depth_inv))):
+        sharded = spatial_shard_fn(fn, shards, SPATIAL_HALO)
+        with torch.inference_mode():
+            want = fn(*ins)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with kernels.record_launches() as records:
+                got = sharded(*ins)
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+        kinds = [n for n, _ in records]
+        print(f"[spatial_ops] {label}: {len(records)} launches in "
+              f"{SPATIAL_SHARDS} shards: {counts}")
+        for name, n in counts.items():
+            if n != kinds.count(name):
+                raise AssertionError(f"{name}: {n} counted, "
+                                     f"{kinds.count(name)} recorded")
+            launches[name] += n
+        _compare(f"spatial {label} offsets, sharded vs unsharded", got[0],
+                 want[0])
+        # the frame against the unsharded warp of the sharded offsets: the
+        # offsets' last bits (K2's atomic sums in any order) move a warp
+        # with random filters by up to ~4e-4, sharded or not
+        with torch.inference_mode():
+            warp = FI.filter_interpolate(ins[0], got[0], ins[2])
+            drift = (got[1] - want[1]).abs().max().item()
+        _compare(f"spatial {label} frame, sharded vs the unsharded warp of "
+                 f"its offsets", got[1], warp)
+        print(f"[spatial_ops] {label} frame against the unsharded chain's "
+              f"(whose offsets differ in their last bits): max |diff| "
+              f"{drift:.3e} (not bounded)")
+        row0s = set()
+        with torch.inference_mode():
+            for k, (name, args) in enumerate(records):
+                kout, plain = _plain_of_launch(name, args)
+                tag = f"spatial {name} launch {k}"
+                if name == "flow_project_finalize":
+                    if not torch.equal(kout, plain):
+                        raise AssertionError(
+                            f"{tag}: K3 not bit-equal to its plain version "
+                            f"({(kout != plain).sum().item()} values)")
+                    print(f"[kernels] {tag} (interior rows {args[5]}.."
+                          f"{args[6]}, carries given): equal to the plain "
+                          f"version, bit for bit")
+                else:
+                    row0 = args[6] if name == "flow_project_scatter" \
+                        else args[8]
+                    row0s.add(row0)
+                    tag += f" (row0 {row0})"
+                    _compare(tag, kout, plain)
+                    if name == "flow_project_scatter" and args[1] is None \
+                            and not torch.equal(kout[:, 2], plain[:, 2]):
+                        raise AssertionError(f"{tag}: the count differs")
+        if not any(r < 0 for r in row0s) or not any(r > 0 for r in row0s):
+            raise AssertionError(f"no shard with row0 < 0 and > 0: {row0s}")
+        # host wall times, the card synchronised (each already run once)
+        with torch.inference_mode():
+            t_one, t_sh = (1000 * _median_s(
+                lambda f=f: (f(*ins), torch.cuda.synchronize()), 5)
+                for f in (fn, sharded))
+        print(f"[times] spatial_ops {label} at 1x{h}x{w}: unsharded "
+              f"{t_one:.3f} ms, {SPATIAL_SHARDS} shards of "
+              f"{h // SPATIAL_SHARDS + 2 * SPATIAL_HALO} rows on one card "
+              f"{t_sh:.3f} ms (host wall, median of 5)")
+    _check_launches("spatial_ops", launches)
+    return launches
+
+
+def phase_spatial_video(dev: torch.device) -> dict:
+    """The video driver's sharded forward (interpolate_video.sharded_forward,
+    frames_between) of DAINSlowMotion(0.25) on the video phase's 1280x720
+    clip, VIDEO_SHARDS shards of the one card with halo VIDEO_HALO: frames
+    padded by the sharded rule (to 1408x768), the launches counted exactly,
+    the frames finite, frames/s, peak memory in all (both shards on this
+    card) and a shard's (the same forward on one shard's block alone, as one
+    card of a sharded run holds it), and the PSNR of each synthesised frame
+    against the unsharded forward on the same padded frames (reported, not
+    bounded: the tiled forward is JAX's stated approximation).  Returns the
+    launches."""
+    frames = make_clip(torch.Generator().manual_seed(1), VIDEO_FRAMES,
+                       VIDEO_H, VIDEO_W)
+    model = make_slowmo_model().to(dev).eval()
+    shards = [dev] * VIDEO_SHARDS
+    sharded = interpolate_video.sharded_forward(model, VIDEO_SHARDS,
+                                                VIDEO_HALO, shards)
+    inputs = [interpolate_video.to_input(f, dev, VIDEO_SHARDS)
+              for f in frames]
+    padded = tuple(inputs[0][0].shape[2:])
+    local = padded[0] // VIDEO_SHARDS + 2 * VIDEO_HALO
+    print(f"[spatial_video] {VIDEO_W}x{VIDEO_H} padded by the sharded rule "
+          f"{interpolate_video.pad_rule(VIDEO_SHARDS)} to {padded[1]}x"
+          f"{padded[0]}; {VIDEO_SHARDS} shards of {local} rows")
+
+    def run(fwd):
+        return [interpolate_video.frames_between(fwd, a[0], b[0], a[1])
+                for a, b in zip(inputs[:-1], inputs[1:])]
+
+    with torch.inference_mode():
+        # a warm-up, its frames before the 8-bit rounding held finite
+        for x in sharded(inputs[0][0], inputs[1][0])["outputs"][1]:
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError("spatial_video: non-finite frames")
+        run(sharded)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        got = run(sharded)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t = time.perf_counter()
+        want = run(model)
+        torch.cuda.synchronize()
+        wall_one = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        run(model)
+        peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[spatial_video] launches: {launches}")
+    _check_launches("spatial_video", launches)
+
+    # a shard's peak: the same forward on one shard's block alone (its rows
+    # and halo), as one card of a sharded run holds it
+    with torch.inference_mode():
+        block = [x[0][:, :, :local] for x in inputs[:2]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model(*block)
+        torch.cuda.synchronize()
+        shard_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    psnrs = []
+    for a, b in zip(got, want):
+        if tuple(a.shape) != (round(1 / SLOWMO_T) - 1, VIDEO_H, VIDEO_W, 3):
+            raise AssertionError(f"spatial_video: frames {tuple(a.shape)}")
+        mse = ((a.float() - b.float()) / 255).pow(2).mean(dim=(1, 2, 3))
+        psnrs += [-10 * math.log10(m) if m > 0 else math.inf
+                  for m in mse.tolist()]
+    n_out = VIDEO_PAIRS * (round(1 / SLOWMO_T) - 1)
+    print(f"[times] spatial_video DAINSlowMotion({SLOWMO_T}) float32 at "
+          f"{padded[1]}x{padded[0]}, {VIDEO_PAIRS} pairs, {n_out} frames: "
+          f"{VIDEO_SHARDS} shards on one card {n_out / wall:.4f} frames/s "
+          f"(wall {wall:.3f} s), unsharded {n_out / wall_one:.4f} frames/s "
+          f"(wall {wall_one:.3f} s), forwards and 8-bit frames only, no "
+          f"PNG; peak memory {peak:.3f} GiB in all with {VIDEO_SHARDS} "
+          f"shards ({held:.3f} GiB held before), {peak_one:.3f} GiB "
+          f"unsharded; a shard's peak (the forward on one {padded[1]}x"
+          f"{local} block alone) {shard_peak:.3f} GiB, "
+          f"{shard_peak / (local * padded[1] / 1e6):.3f} GiB a megapixel")
+    finite = [p for p in psnrs if math.isfinite(p)]
+    print(f"[spatial_video] the sharded frames against the unsharded "
+          f"forward's: PSNR min {min(psnrs):.2f} dB, mean of the finite "
+          f"{statistics.fmean(finite) if finite else math.inf:.2f} dB, "
+          f"{len(psnrs) - len(finite)} of {len(psnrs)} frames equal (not "
+          f"bounded: the tiled approximation)")
+    return launches
+
+
+def _hold_grads(tag, grads: dict, plain) -> float:
+    """``plain``'s gradients against ``grads`` (name -> the data-parallel
+    gradient), per leaf, within rtol 5e-3 and atol 5e-3 x the leaf's largest
+    magnitude (the train phases' tolerance); then ``grads`` copied into
+    ``plain``.  Returns the worst max |diff| / the leaf's largest
+    magnitude."""
+    worst = 0.0
+    for name, q in plain.named_parameters():
+        if q.grad is None:
+            continue
+        got = grads[name].to(q.device)
+        scale = max(q.grad.abs().max().item(), 1e-12)
+        worst = max(worst, (got - q.grad).abs().max().item() / scale)
+        if not torch.allclose(got, q.grad, rtol=5e-3, atol=5e-3 * scale):
+            raise AssertionError(f"{tag}: the gradients of {name} disagree")
+        q.grad.copy_(got)
+    return worst
+
+
+def phase_data_parallel(dev: torch.device) -> dict:
+    """The trainer's data-parallel path (vfidkr_torch.parallel.mesh) over a
+    process group of world size 1 on NCCL (in this process, a file store):
+    DP_STEPS DAIN train steps at B=3, 256x448, each rank's share of the
+    batch, the gradients all-reduced before Adamax and the metrics averaged,
+    each against the one-process trainer's step from the same state (the
+    plain model and its Adamax state set to the data-parallel ones first)
+    on the same batch: the loss (rtol 1e-4) and the gradients per leaf
+    (rtol 5e-3, atol 5e-3 x the leaf's largest magnitude, the train phases'
+    tolerance); then the one-process Adamax step, on the data-parallel
+    gradients, gives the data-parallel parameters bit for bit.  The two
+    runs' own parameters are not compared element by element: Adamax moves
+    a weight whose gradient is near its eps (1e-8) by lr x g / (|g| + eps),
+    so the gradients' last bits (K2's atomics, the warps' backward on
+    ATen's atomics) can flip such a weight's step (3 steps of the two runs
+    from the same init put 2 values of initScaleNets_filter.11.weight past
+    the tolerance above).  With two or more cards also world size 2 (one
+    process a card).  Returns the launches of the data-parallel steps."""
+    import torch.distributed as dist
+    from vfidkr_torch.parallel import mesh as M
+    config = TrainConfig()
+    g = torch.Generator().manual_seed(7)
+    batches = [{k: v.to(dev) for k, v in make_triplets(g, TRAIN_B).items()}
+               for _ in range(DP_STEPS)]
+    plain = make_model().to(dev)
+    dp = copy.deepcopy(plain)
+    plain_opt, dp_opt = make_optimizer(plain, config), make_optimizer(dp,
+                                                                      config)
+    worst = 0.0
+    with tempfile.TemporaryDirectory(prefix="vfidkr_dp_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = M.create_mesh(dev)
+            if not mesh.joined or mesh.world != 1:
+                raise AssertionError(f"mesh {mesh}")
+            M.replicate(dp, mesh)
+            launches = dict.fromkeys(KERNELS, 0)
+            for step, batch in enumerate(batches):
+                # a copy: loading keeps the tensors it is given, and the
+                # data-parallel step updates its state in place
+                plain.load_state_dict(dp.state_dict())
+                plain_opt.load_state_dict(copy.deepcopy(dp_opt.state_dict()))
+                kernels.reset_launches()
+                m = M.mean_across(train_step(
+                    dp, dp_opt, M.shard_batch(batch, mesh), config, 1.0,
+                    lambda model: M.average_gradients(model, mesh)), mesh)
+                torch.cuda.synchronize()
+                counts = dict(kernels.LAUNCHES)
+                _check_launches("train_step", counts)
+                for k in launches:
+                    launches[k] += counts[k]
+                tag = f"data_parallel step {step}"
+
+                grads = {n: p.grad for n, p in dp.named_parameters()
+                         if p.grad is not None}
+
+                def swap(model, tag=tag, grads=grads):
+                    nonlocal worst
+                    worst = max(worst, _hold_grads(tag, grads, model))
+
+                want = train_step(plain, plain_opt, batch, config, 1.0, swap)
+                a, b = float(m["total"]), float(want["total"])
+                print(f"[data_parallel] step {step}: loss {a:.6f} through "
+                      f"the NCCL group, {b:.6f} one process")
+                if not math.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                    raise AssertionError(f"{tag}: loss {a} vs {b}")
+                for (name, p), q in zip(dp.named_parameters(),
+                                        plain.parameters()):
+                    if not torch.equal(p, q):
+                        raise AssertionError(f"{tag}: Adamax on the same "
+                                             f"gradients moved {name} "
+                                             f"differently")
+        finally:
+            dist.destroy_process_group()
+    _check_launches("data_parallel", launches)
+    print(f"[data_parallel] {DP_STEPS} steps through the world-size-1 NCCL "
+          f"group: losses and gradients those of the one-process steps "
+          f"(worst max |diff| / the leaf's largest gradient {worst:.3e}), "
+          f"the parameters the one-process Adamax step's on its gradients "
+          f"bit for bit; launches {launches}")
+    if torch.cuda.device_count() >= 2:
+        _data_parallel_two_cards()
+    else:
+        print("[data_parallel] one card: world size 2 not run")
+    return launches
+
+
+def _dp_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of the two-card data-parallel check (started by
+    _data_parallel_two_cards): one step on its share of a global batch of
+    2 x world, its parameters written by rank 0."""
+    import torch.distributed as dist
+    from vfidkr_torch.parallel import mesh as M
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = M.Mesh(rank, world, dev, True)
+        model = make_model().to(dev)
+        opt = make_optimizer(model, TrainConfig())
+        M.replicate(model, mesh)
+        batch = make_triplets(torch.Generator().manual_seed(7), 2 * world)
+        train_step(model, opt, M.shard_batch(batch, mesh), TrainConfig(),
+                   1.0, lambda m: M.average_gradients(m, mesh))
+        if rank == 0:
+            torch.save({"grads": {n: p.grad.cpu() for n, p in
+                                  model.named_parameters()
+                                  if p.grad is not None},
+                        "params": {n: p.detach().cpu() for n, p in
+                                   model.named_parameters()}}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _data_parallel_two_cards() -> None:
+    """World size 2 on cards 0 and 1, one process each, against one process
+    on card 0 with the whole batch, one step held as phase_data_parallel
+    holds each of its steps."""
+    import torch.multiprocessing as mp
+    world = 2
+    with tempfile.TemporaryDirectory(prefix="vfidkr_dp2_") as tmp:
+        out = os.path.join(tmp, "rank0.pt")
+        mp.spawn(_dp_rank, args=(world, os.path.join(tmp, "store"), out),
+                 nprocs=world, join=True)
+        got = torch.load(out, weights_only=True)
+    dev = torch.device("cuda", 0)
+    model = make_model().to(dev)
+    opt = make_optimizer(model, TrainConfig())
+    batch = {k: v.to(dev) for k, v in make_triplets(
+        torch.Generator().manual_seed(7), 2 * world).items()}
+    worst = []
+    train_step(model, opt, batch, TrainConfig(), 1.0, lambda m: worst.append(
+        _hold_grads("data_parallel world 2", got["grads"], m)))
+    for name, p in model.named_parameters():
+        if not torch.equal(p.detach().cpu(), got["params"][name]):
+            raise AssertionError(f"data_parallel world 2: Adamax on the "
+                                 f"same gradients moved {name} differently")
+    print(f"[data_parallel] world size 2 run on cards 0 and 1 (NCCL, one "
+          f"process each): a step at B={2 * world}, its gradients those of "
+          f"the one-process step (worst {worst[0]:.3e}), its parameters the "
+          f"one-process Adamax step's on them")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -2267,6 +2701,11 @@ def main() -> None:
     phase_depth(dev)
     print(f"[time] the drivers' phases checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
+    parallel_launches = {"spatial_ops": phase_spatial_ops(dev),
+                         "spatial_video": phase_spatial_video(dev),
+                         "data_parallel": phase_data_parallel(dev)}
+    print(f"[time] the parallel phases checked and timed: "
+          f"{time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
     phase_bf16_stages(dev, eval_bf16, slowmo_bf16, i0, i2)
@@ -2284,7 +2723,8 @@ def main() -> None:
                 "eval_forward_bf16": eval_bf16_launches,
                 "slowmo_forward_bf16": slowmo_bf16_launches,
                 "middlebury_bf16": mb_launches,
-                "slowmo_train_step": smt_launches, **video_launches}
+                "slowmo_train_step": smt_launches, **video_launches,
+                **parallel_launches}
     print(f"[launches] {per_path}")
     rows = []
     for name, (src, rep) in KERNELS.items():

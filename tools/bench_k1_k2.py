@@ -86,7 +86,8 @@ def k2(lib, flow, weight):
     n, _, h, w = flow.shape
     acc = torch.zeros(n, 3, h, w, device=flow.device)
     if fn(flow.data_ptr(), None if weight is None else weight.data_ptr(),
-          acc.data_ptr(), n, h, w, None, torch.cuda.current_stream().cuda_stream):
+          acc.data_ptr(), n, h, w, 0, h, None,
+          torch.cuda.current_stream().cuda_stream):
         raise RuntimeError("flow_project_scatter: launch failed")
     return acc
 
@@ -95,7 +96,8 @@ def k1(lib, img, flow, filt):
     fn = _entry(lib, "vfidkr_filter_interpolate_fwd")
     out = torch.empty_like(img)
     if fn(img.data_ptr(), flow.data_ptr(), filt.data_ptr(), out.data_ptr(),
-          *img.shape, torch.cuda.current_stream().cuda_stream):
+          *img.shape, 0, img.shape[2],
+          torch.cuda.current_stream().cuda_stream):
         raise RuntimeError("filter_interpolate_fwd: launch failed")
     return out
 

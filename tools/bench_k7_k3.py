@@ -118,20 +118,23 @@ def device_us(fn, kernel: str) -> float:
 
 def k7(lib, img, flow, filt):
     fn = lib.vfidkr_filter_interpolate_ctx
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = build.SIGNATURES["vfidkr_filter_interpolate_ctx"]
     out = torch.empty_like(img)
+    # row0 = 0, hg = h: a whole frame
     if fn(img.data_ptr(), flow.data_ptr(), filt.data_ptr(), out.data_ptr(),
-          *img.shape, None, torch.cuda.current_stream().cuda_stream):
+          *img.shape, 0, img.shape[2], None,
+          torch.cuda.current_stream().cuda_stream):
         raise RuntimeError("filter_interpolate_ctx: launch failed")
     return out
 
 
 def k3(lib, acc):
     fn = lib.vfidkr_flow_project_finalize
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = build.SIGNATURES["vfidkr_flow_project_finalize"]
     n, _, h, w = acc.shape
     out = torch.empty(n, 2, h, w, device=acc.device)
-    if fn(acc.data_ptr(), out.data_ptr(), n, h, w,
+    # the whole frame's rows searched, no carries
+    if fn(acc.data_ptr(), out.data_ptr(), n, h, w, 0, h, None, None,
           torch.cuda.current_stream().cuda_stream):
         raise RuntimeError("flow_project_finalize: launch failed")
     return out

@@ -20,7 +20,14 @@ the entries the model has and skips the rest.  It runs on the card unless
 asked for the CPU (``--device cpu``).
 
 Each frame is replication-padded to a multiple of 128, at least 32 px a
-side (1280x720 runs at 1344x768); ``outputs[--save-which]`` (0 the blend,
+side (1280x720 runs at 1344x768); with ``--spatial-shards n`` > 1 to a
+multiple of max(128, 64 n), at least half of it a side, as JAX's driver
+pads, so that each shard's H/n + 2 ``--halo`` rows keep the networks' /64.
+``--spatial-shards n`` row-shards each forward over n devices with halo
+exchange (``vfidkr_torch.parallel.spatial``, one thread a shard): the first
+n cards, or n threads on the CPU with ``--device cpu``; like JAX's, it is
+the tiled approximation of the whole-frame forward, for frames that do not
+fit on one card.  ``outputs[--save-which]`` (0 the blend,
 1 the rectified) is unpadded, clipped to [0, 1] and rounded to the 8-bit
 grid on the device, and a pair's frames are copied to the host at once.
 The forward runs under ``torch.inference_mode()``.  PNG frames are read
@@ -36,14 +43,13 @@ decoding, in the forwards (each up to its frames on the host) and encoding,
 by the driver's own timers; the three overlap, so their shares of the wall
 time may sum past 1.
 
-Left out of JAX's flags: ``--spatial-shards`` and ``--halo`` (row sharding
-over devices, the parallelism item of ROADMAP.md) and ``--depth-impl
-packed`` (a TPU workaround).
+Left out of JAX's flags: ``--depth-impl packed`` (a TPU workaround).
 
 Usage:
   python -m vfidkr_torch.apps.interpolate_video --frames-dir in/ \\
       --out-dir out/ [--time-step 0.25 --model DAIN_slowmotion] \\
       [--compute-dtype bfloat16] [--torch-checkpoint best.pth] [--device cuda]
+      [--spatial-shards 2 --halo 64]
   python -m vfidkr_torch.apps.interpolate_video --video-in clip.mp4 \\
       --video-out out.mp4 --time-step 0.25 --model DAIN_slowmotion
 """
@@ -51,6 +57,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import sys
@@ -93,6 +100,11 @@ def build_parser() -> argparse.ArgumentParser:
                          help="a checkpoint of the port's trainer")
     ap.add_argument("--save-which", type=int, default=1,
                     help="0: blended output, 1: rectified")
+    ap.add_argument("--spatial-shards", type=int, default=1,
+                    help="row-shard frames over N devices with halo exchange"
+                         " (N threads on the CPU with --device cpu)")
+    ap.add_argument("--halo", type=int, default=64,
+                    help="halo rows per shard (>= max motion + op support)")
     add_model_flags(ap)
     add_device_flag(ap)
     return ap
@@ -122,19 +134,52 @@ def _timed(frames, stages: dict):
         yield frame
 
 
-def to_input(frame: np.ndarray, device):
+def pad_rule(spatial_shards: int = 1) -> tuple[int, int]:
+    """(multiple, min_pad) of the frames' padding, as JAX's driver pads
+    (``apps/interpolate_video.py:138-144``): with n > 1 shards each shard's
+    H/n + 2 halo rows must keep the networks' /64, so H pads to a multiple
+    of 64 n (and 128), and a dim already divisible keeps the multiple."""
+    if spatial_shards == 1:
+        return 128, 32
+    multiple = max(128, 64 * spatial_shards)
+    return multiple, multiple // 2
+
+
+def to_input(frame: np.ndarray, device, spatial_shards: int = 1):
     """(H, W, 3) uint8 -> ((1, 3, H', W') float32 on ``device``, pads): the
     value of JAX's ``frame / 255.0``, replication-padded for the model."""
     x = torch.from_numpy(frame).to(device).permute(2, 0, 1)[None]
-    return pad_to_multiple(x.contiguous().float() / 255.0, multiple=128,
-                           min_pad=32)
+    multiple, min_pad = pad_rule(spatial_shards)
+    return pad_to_multiple(x.contiguous().float() / 255.0, multiple=multiple,
+                           min_pad=min_pad)
 
 
-def frames_between(model: torch.nn.Module, a: torch.Tensor, b: torch.Tensor,
+def sharded_forward(model: torch.nn.Module, spatial_shards: int, halo: int,
+                    devices=None):
+    """``model``'s forward row-sharded over ``devices`` (default: the first
+    ``spatial_shards`` CUDA devices, or as many threads on the CPU for a
+    model on the CPU), as JAX's driver wraps its forward in
+    ``shard_model_rows``; each device runs a replica of the model."""
+    from vfidkr_torch.parallel.spatial import cuda_devices, shard_model_rows
+    home = next(model.parameters()).device
+    if devices is None:
+        devices = ([home] * spatial_shards if home.type == "cpu"
+                   else cuda_devices(spatial_shards))
+    devices = [torch.device(d) for d in devices]
+    replicas = {d: model if d == home else copy.deepcopy(model).to(d)
+                for d in set(devices)}
+    # only the frames cross the shards (JAX's driver shards its frames too)
+    return shard_model_rows(
+        lambda a, b: {"outputs": replicas[a.device](a, b)["outputs"]},
+        spatial_shards, halo, devices)
+
+
+def frames_between(model, a: torch.Tensor, b: torch.Tensor,
                    pads, save_which: int = 1) -> torch.Tensor:
     """Padded (1, 3, H', W') frames -> the synthesised frames between them,
     (K, H, W, 3) uint8 on the device: each unpadded by ``pads``, clipped to
-    [0, 1] and rounded to the 8-bit grid."""
+    [0, 1] and rounded to the 8-bit grid.  ``model`` is the model, or a
+    sharded forward of it (``sharded_forward``)."""
     with torch.inference_mode():
         outs = model(a, b)["outputs"][save_which]
         if not isinstance(outs, (list, tuple)):
@@ -200,6 +245,10 @@ def main(argv=None) -> dict:
         print(f"loaded {len(loaded)} tensors ({len(skipped)} skipped)",
               file=sys.stderr)
     model = model.to(device).eval()
+    if args.spatial_shards < 1:
+        ap.error("--spatial-shards must be at least 1")
+    forward = (model if args.spatial_shards == 1 else
+               sharded_forward(model, args.spatial_shards, args.halo))
 
     first = next(frames, None)
     if first is None:
@@ -244,9 +293,10 @@ def main(argv=None) -> dict:
             t = time.perf_counter()
             # each frame goes to the card and is padded once: pair k's b is
             # pair k+1's a
-            a_in, pads = to_input(a, device) if b_in is None else b_in
-            b_in = to_input(b, device)
-            outs = frames_between(model, a_in, b_in[0], pads,
+            a_in, pads = (to_input(a, device, args.spatial_shards)
+                          if b_in is None else b_in)
+            b_in = to_input(b, device, args.spatial_shards)
+            outs = frames_between(forward, a_in, b_in[0], pads,
                                   args.save_which)
             outs = outs.cpu().numpy()
             stages["forward"] += time.perf_counter() - t

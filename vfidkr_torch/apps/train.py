@@ -18,7 +18,22 @@ Usage:
       [--lr 2e-3] [--device cuda] ...
 
 It trains on the card (``--device`` defaults to ``cuda``) unless asked for
-the CPU (``--device cpu``); nothing falls back.  The PNG frames are decoded
+the CPU (``--device cpu``); nothing falls back.
+
+Data-parallel over ranks started by ``torchrun`` (``WORLD_SIZE`` > 1), as
+JAX's trainer is over a mesh of every chip (``vfidkr_torch.parallel.mesh``):
+
+  torchrun --nproc_per_node=N -m vfidkr_torch.apps.train \\
+      --dataset-path /data/vimeo_triplet --save-path runs/x --batch-size 6
+
+``--batch-size`` stays the global batch and must divide by N.  Each rank
+(card ``LOCAL_RANK``, NCCL; gloo with ``--device cpu``) decodes only its
+share of every batch, in its own decode pool, and the gradients are
+averaged across ranks before Adamax, so a step equals the one-process step
+on the whole batch.  The losses and the validation metrics are averaged
+across ranks; rank 0 alone writes the checkpoints, ``log.txt`` and the
+TensorBoard scalars; every rank restores on ``--resume``.  At world size 1
+the trainer is the one-process trainer.  The PNG frames are decoded
 without PIL (``vfidkr_torch.utils.image_io``).  On the card they are decoded
 in up to 4 worker processes (``vfidkr_torch.data.vimeo90k.decode_pool``): a
 batch of PIL-written frames takes the decoder's diagonal walk, and on one
@@ -74,38 +89,48 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     from vfidkr_torch.data.vimeo90k import decode_pool
-    workers = (min(4, (os.cpu_count() or 1) - 1)
+    # the host's cores shared among the ranks' pools
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    workers = (min(4, ((os.cpu_count() or 1) - 1) // world)
                if torch.device(args.device).type == "cuda" else 0)
     with decode_pool(workers) as pool:
         train(args, pool)
 
 
 def train(args, pool=None) -> None:
-    """The training run of ``args``, its frames decoded in ``pool``."""
+    """The training run of ``args``, its frames decoded in ``pool``, as the
+    rank that the ``torchrun`` environment names (the only one without
+    it)."""
     from vfidkr_torch.data.vimeo90k import (train_batches, val_batches,
                                             vimeo90k_splits)
     from vfidkr_torch.models import DAIN, DAINSlowMotion
+    from vfidkr_torch.parallel import mesh as M
     from vfidkr_torch.training import (CheckpointManager, TrainConfig,
                                        eval_step, full_state, load_weights,
                                        make_optimizer, plateau_init,
                                        plateau_step, restore_full_state,
                                        train_step)
 
-    device = torch.device(args.device)
+    mesh = M.create_mesh(args.device)
+    share = M.shard_range(args.batch_size, mesh)
+    device = mesh.device
+    main_rank = mesh.is_main
+    say = print if main_rank else (lambda *a, **k: None)
     os.makedirs(args.save_path, exist_ok=True)
-    with open(os.path.join(args.save_path, "args.txt"), "w") as f:
-        json.dump(vars(args), f, indent=2)
     log_path = os.path.join(args.save_path, "log.txt")
-    if not args.resume:
-        open(log_path, "w").close()
-
-    # TensorBoard scalars with the reference's tensorboardX and tags
-    # (train.py:209,274-275), where that package is installed
-    try:
-        from tensorboardX import SummaryWriter
-        tb = SummaryWriter(os.path.join(args.save_path, "tb"))
-    except ImportError:
-        tb = None
+    tb = None
+    if main_rank:
+        with open(os.path.join(args.save_path, "args.txt"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+        if not args.resume:
+            open(log_path, "w").close()
+        # TensorBoard scalars with the reference's tensorboardX and tags
+        # (train.py:209,274-275), where that package is installed
+        try:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(os.path.join(args.save_path, "tb"))
+        except ImportError:
+            pass
 
     config = TrainConfig(
         lr=args.lr, rectify_lr=args.rectify_lr,
@@ -114,7 +139,7 @@ def train(args, pool=None) -> None:
         factor=args.factor, patience=args.patience)
 
     train_paths, test_paths = vimeo90k_splits(args.dataset_path)
-    print(f"{len(train_paths) + len(test_paths)} samples found, "
+    say(f"{len(train_paths) + len(test_paths)} samples found, "
           f"{len(train_paths)} train samples and {len(test_paths)} test "
           f"samples")
 
@@ -124,8 +149,8 @@ def train(args, pool=None) -> None:
              DAIN(generator=generator))
     if args.pretrained:
         loaded, _ = load_weights(model, args.pretrained)
-        print(f"fine-tuning: loaded {len(loaded)} tensors from "
-              f"{args.pretrained}")
+        say(f"fine-tuning: loaded {len(loaded)} tensors from "
+            f"{args.pretrained}")
     model = model.to(device)
     optimizer = make_optimizer(model, config)
     plateau = plateau_init()
@@ -137,7 +162,7 @@ def train(args, pool=None) -> None:
     if args.resume:
         last = ckpt.latest_epoch()
         if last is None:
-            print("--resume: no epoch checkpoint found, starting fresh")
+            say("--resume: no epoch checkpoint found, starting fresh")
         else:
             state = ckpt.load(f"epoch{last}")
             plateau = restore_full_state(state, model, optimizer)
@@ -146,45 +171,53 @@ def train(args, pool=None) -> None:
             if os.path.exists(log_path) and os.path.getsize(log_path) > 0:
                 prior = np.loadtxt(log_path, delimiter=",", ndmin=2)
                 rows = [list(r) for r in prior if int(r[0]) <= last]
-            print(f"resumed from epoch{last} (next epoch {start_epoch}, "
-                  f"best val {best_val:.5f}, lr scale {plateau.scale:.4f})")
+            rank = f"rank {mesh.rank}: " if mesh.world > 1 else ""
+            print(f"{rank}resumed from epoch{last} (next epoch "
+                  f"{start_epoch}, best val {best_val:.5f}, lr scale "
+                  f"{plateau.scale:.4f})")
+    # every rank starts from rank 0's weights
+    M.replicate(model, mesh)
 
     steps = args.steps_per_epoch or len(train_paths) // args.batch_size
     val_steps = args.val_batches or len(test_paths) // args.batch_size
     to_dev = lambda b: {k: v.to(device, non_blocking=True)
                         for k, v in b.items()}
+    reduce_grads = (lambda m: M.average_gradients(m, mesh)) if mesh.joined \
+        else None
 
     for epoch in range(start_epoch, args.num_epochs):
         t0 = time.time()
         train_losses = []
         for i, batch in enumerate(train_batches(
                 args.dataset_path, train_paths, args.batch_size, steps,
-                args.seed, epoch, pool)):
-            metrics = train_step(model, optimizer, to_dev(batch), config,
-                                 plateau.scale)
+                args.seed, epoch, pool, share)):
+            metrics = M.mean_across(train_step(
+                model, optimizer, to_dev(batch), config, plateau.scale,
+                reduce_grads), mesh)
             train_losses.append(float(metrics["total"]))
             if i % max(1, steps // 50) == 0:
                 pix = [round(float(x), 5) for x in metrics["pixel"]]
-                print(f"Ep [{epoch}/{i}] lr_scale {plateau.scale:.4f} "
-                      f"Pix {pix} TV {float(metrics['tv']):.4f} "
-                      f"Sym {float(metrics['sym']):.4f} "
-                      f"Total {float(metrics['total']):.5f}")
+                say(f"Ep [{epoch}/{i}] lr_scale {plateau.scale:.4f} "
+                    f"Pix {pix} TV {float(metrics['tv']):.4f} "
+                    f"Sym {float(metrics['sym']):.4f} "
+                    f"Total {float(metrics['total']):.5f}")
         train_avg = float(np.mean(train_losses)) if train_losses else 0.0
-        print(f"***** epoch {epoch} took {time.time() - t0:.3f}s *****")
+        say(f"***** epoch {epoch} took {time.time() - t0:.3f}s *****")
 
         vals, psnrs = [], []
         for batch in val_batches(args.dataset_path, test_paths,
-                                 args.batch_size, val_steps, pool):
-            m = eval_step(model, to_dev(batch), config)
+                                 args.batch_size, val_steps, pool, share):
+            m = M.mean_across(eval_step(model, to_dev(batch), config), mesh)
             vals.append(float(m["total"]))
             psnrs.append(float(m["psnr"]))
         val_avg = float(np.mean(vals)) if vals else 0.0
         psnr_avg = float(np.mean(psnrs)) if psnrs else 0.0
-        print(f"Epoch {epoch}\tAvg Train {train_avg:.5f}\tVal {val_avg:.5f}\t"
-              f"PSNR {psnr_avg:.5f}")
+        say(f"Epoch {epoch}\tAvg Train {train_avg:.5f}\tVal {val_avg:.5f}\t"
+            f"PSNR {psnr_avg:.5f}")
 
         rows.append([epoch, plateau.scale, train_avg, val_avg, psnr_avg])
-        np.savetxt(log_path, np.asarray(rows), fmt="%.8f", delimiter=",")
+        if main_rank:
+            np.savetxt(log_path, np.asarray(rows), fmt="%.8f", delimiter=",")
         if tb is not None:
             tb.add_scalar("Train/Loss", round(train_avg, 5), epoch)
             tb.add_scalar("Test/Loss", round(val_avg, 5), epoch)
@@ -193,20 +226,24 @@ def train(args, pool=None) -> None:
 
         if val_avg <= best_val:
             best_val = val_avg
-            ckpt.save_best(full_state(model, optimizer, plateau, epoch,
-                                      best_val))
-            print("\t\tBest weights updated for decreased validation loss")
+            if main_rank:
+                ckpt.save_best(full_state(model, optimizer, plateau, epoch,
+                                          best_val))
+            say("\t\tBest weights updated for decreased validation loss")
 
         plateau = plateau_step(plateau, val_avg, factor=config.factor,
                                patience=config.patience)
         # saved last, so a resume from epoch<k> finds epoch k's validation,
         # best-on-val and plateau step already done
-        ckpt.save_epoch(epoch, full_state(model, optimizer, plateau, epoch,
-                                          best_val))
+        if main_rank:
+            ckpt.save_epoch(epoch, full_state(model, optimizer, plateau,
+                                              epoch, best_val))
 
     if tb is not None:
         tb.close()
-    print("*********Finish Training********")
+    # no rank leaves (and no resume reads) before rank 0's last save
+    M.barrier(mesh)
+    say("*********Finish Training********")
 
 
 if __name__ == "__main__":

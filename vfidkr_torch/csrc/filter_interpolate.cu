@@ -17,6 +17,17 @@
 //            filt[dj*4+di] * (dj >= 2 ? beta : 1-beta) * (di >= 2 ? alpha : 1-alpha)
 // The filter index is the unclamped window position; only the read is clamped.
 // The taps are summed in order t = dj*4 + di = 0..15.
+// A row-sharded frame (vfidkr_torch/parallel/spatial.py) runs this on a block of
+// h rows whose local row 0 is global row row0 of a frame hg rows high; the row
+// terms then hold in the frame's coordinates, as _window_geometry's do under a
+// spatial frame (vfidkr_tpu/ops/filter_interpolation.py:43-86):
+//   y2 = (y + row0) + fy       (the frame's row: rounded as the whole frame's is)
+//   valid = 0 <= x2 <= W-1 && 0 <= y2 <= hg-1 && |fx| < W/2 && |fy| < hg/2
+//   iy, beta from y2 clamped to the block's rows [row0, row0+h-1] (which binds
+//   only for a flow past the block); iy is then made local
+// and the tap clamp stays local: the halo rows replicate the frame's edge rows,
+// which is what a clamped read of the whole frame gives.  Outside a sharded frame
+// row0 = 0 and hg = h, and the terms reduce to those above.
 //
 // What bounds it on the H100: memory, and the taps' trips through L1.  Per pixel it
 // must read 4*(2 + 16 + C) bytes of flow, filter and image and write 4*C bytes (96
@@ -54,7 +65,8 @@ __global__ void __launch_bounds__(TW * TH)
     filter_interpolate_fwd_kernel(const float* __restrict__ image,
                                   const float* __restrict__ flow,
                                   const float* __restrict__ filt,
-                                  float* __restrict__ out, int c, int h, int w) {
+                                  float* __restrict__ out, int c, int h, int w,
+                                  int row0, int hg) {
   const int x = blockIdx.x * TW + threadIdx.x;
   const int y = blockIdx.y * TH + threadIdx.y;
   const int b = blockIdx.z;
@@ -71,16 +83,17 @@ __global__ void __launch_bounds__(TW * TH)
   for (int t = 0; t < 16; ++t) wgt[t] = __ldcs(filt + (16LL * b + t) * hw + p);
 
   const float x2 = (float)x + fx;
-  const float y2 = (float)y + fy;
+  const float y2 = (float)(y + row0) + fy;
   const bool valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) &&
-                     y2 <= (float)(h - 1) && fabsf(fx) < (float)w / 2.0f &&
-                     fabsf(fy) < (float)h / 2.0f;
+                     y2 <= (float)(hg - 1) && fabsf(fx) < (float)w / 2.0f &&
+                     fabsf(fy) < (float)hg / 2.0f;
+  const float yc = fminf(fmaxf(y2, (float)row0), (float)(row0 + h - 1));
   const float xf = floorf(x2);
-  const float yf = floorf(y2);
+  const float yf = floorf(yc);
   const float alpha = x2 - xf;
-  const float beta = y2 - yf;
+  const float beta = yc - yf;
   const int ix = valid ? (int)xf : 0;
-  const int iy = valid ? (int)yf : 0;
+  const int iy = valid ? (int)yf - row0 : 0;
   int rows[4], cols[4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
@@ -119,13 +132,14 @@ __global__ void __launch_bounds__(TW * TH)
 }  // namespace
 
 // image and out (N,C,H,W), flow (N,2,H,W), filt (N,16,H,W); any C >= 1.
+// row0, hg: the block's place in a row-sharded frame (0 and h outside one).
 extern "C" int vfidkr_filter_interpolate_fwd(const float* image, const float* flow,
                                              const float* filt, float* out, int n,
-                                             int c, int h, int w,
+                                             int c, int h, int w, int row0, int hg,
                                              cudaStream_t stream) {
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  filter_interpolate_fwd_kernel<<<grid, dim3(TW, TH), 0, stream>>>(image, flow, filt,
-                                                                   out, c, h, w);
+  filter_interpolate_fwd_kernel<<<grid, dim3(TW, TH), 0, stream>>>(
+      image, flow, filt, out, c, h, w, row0, hg);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,13 @@
 //            filt[dj*4+di] * (dj >= 2 ? beta : 1-beta) * (di >= 2 ? alpha : 1-alpha)
 // The filter index is the unclamped window position; only the read is clamped.
 // The taps are summed in order t = dj*4 + di = 0..15.
+// In a row-sharded frame (row0, hg: the block's first global row and the frame's
+// height, as in K1) the row terms hold in the frame's coordinates:
+//   y2 = (y + row0) + fy
+//   valid = 0 <= x2 <= W-1 && 0 <= y2 <= hg-1 && |fx| < W/2 && |fy| < hg/2
+//   iy, beta from y2 clamped to the block's rows [row0, row0+h-1], iy made local
+// and the staged box is that of the windows at this landing.  Outside a sharded
+// frame row0 = 0 and hg = h.
 //
 // What bounds it on the H100: memory.  Per pixel it must read 4*(2 + 16 + C) bytes
 // of flow, filter and image and write 4*C bytes: at 2x196x256x448 about 376 MB,
@@ -88,7 +95,8 @@ __global__ void __launch_bounds__(THREADS, 4)
                                   const float* __restrict__ flow,
                                   const float* __restrict__ filt,
                                   float* __restrict__ out, int c, int h, int w,
-                                  int ranges, int per_range, int* direct_tiles) {
+                                  int row0, int hg, int ranges, int per_range,
+                                  int* direct_tiles) {
   __shared__ __align__(16) float stage[NSTAGE][STAGE];
   __shared__ int red[4][TH];
 
@@ -125,17 +133,18 @@ __global__ void __launch_bounds__(THREADS, 4)
     const float fx = flow[(2LL * b) * hw + p];
     const float fy = flow[(2LL * b + 1) * hw + p];
     const float x2 = (float)x + fx;
-    const float y2 = (float)y + fy;
+    const float y2 = (float)(y + row0) + fy;
     valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) &&
-            y2 <= (float)(h - 1) && fabsf(fx) < (float)w / 2.0f &&
-            fabsf(fy) < (float)h / 2.0f;
+            y2 <= (float)(hg - 1) && fabsf(fx) < (float)w / 2.0f &&
+            fabsf(fy) < (float)hg / 2.0f;
     if (valid) {
+      const float yc = fminf(fmaxf(y2, (float)row0), (float)(row0 + h - 1));
       const float xf = floorf(x2);
-      const float yf = floorf(y2);
+      const float yf = floorf(yc);
       const float alpha = x2 - xf;
-      const float beta = y2 - yf;
+      const float beta = yc - yf;
       ix = (int)xf;
-      iy = (int)yf;
+      iy = (int)yf - row0;
 #pragma unroll
       for (int dj = 0; dj < 4; ++dj) {
         const float wy = dj >= 2 ? beta : 1.0f - beta;
@@ -297,20 +306,21 @@ __global__ void __launch_bounds__(THREADS, 4)
 }  // namespace
 
 // image and out (N,C,H,W), flow (N,2,H,W), filt (N,16,H,W); any C >= 1.
+// row0, hg: the block's place in a row-sharded frame (0 and h outside one).
 // direct_tiles (or NULL): gains the number of tiles that took the direct gather.
 extern "C" int vfidkr_filter_interpolate_ctx(const float* image, const float* flow,
                                              const float* filt, float* out, int n,
-                                             int c, int h, int w, int* direct_tiles,
-                                             cudaStream_t stream) {
+                                             int c, int h, int w, int row0, int hg,
+                                             int* direct_tiles, cudaStream_t stream) {
   const int ranges = (c + CH_RANGE - 1) / CH_RANGE;
   const int per_range = (c + ranges - 1) / ranges;
   const long long tiles = (long long)n * ((w + TW - 1) / TW) * ((h + TH - 1) / TH);
   const unsigned blocks = (unsigned)(tiles * ranges);
   if (w % 4 == 0 && reinterpret_cast<std::uintptr_t>(image) % 16 == 0)
     filter_interpolate_ctx_kernel<4><<<blocks, THREADS, 0, stream>>>(
-        image, flow, filt, out, c, h, w, ranges, per_range, direct_tiles);
+        image, flow, filt, out, c, h, w, row0, hg, ranges, per_range, direct_tiles);
   else
     filter_interpolate_ctx_kernel<1><<<blocks, THREADS, 0, stream>>>(
-        image, flow, filt, out, c, h, w, ranges, per_range, direct_tiles);
+        image, flow, filt, out, c, h, w, row0, hg, ranges, per_range, direct_tiles);
   return (int)cudaGetLastError();
 }

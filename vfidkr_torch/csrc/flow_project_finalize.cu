@@ -15,6 +15,17 @@
 //            the order left, right, up, down; else out = 0.
 // The divisor is max(cnt, 1e-30), as the plain version's count average clamps.
 //
+// In a row-sharded frame (vfidkr_torch/parallel/spatial.py) the block holds its
+// shard's interior rows [row_lo, row_hi) between halo rows whose sums miss the
+// sources beyond the block, as JAX's sharded fill_holes has it
+// (vfidkr_tpu/ops/flow_projection.py:312-345): the left and right searches cover
+// whole rows of the block, the up and down searches interior rows only, and a
+// column with no filled interior cell above (below) a hole takes carry_up
+// (carry_down) where that carry exists: (N,3,W) rows of (mean x, mean y, 1 where
+// some shard above (below) has a filled interior cell in the column, else 0), the
+// nearest such shard's cell.  Outside a sharded frame row_lo = 0, row_hi = h and
+// both carries are NULL: the search is the frame-global one above.
+//
 // What bounds it on the H100: memory, 12 bytes read and 8 written a cell (1.37
 // us at 2x256x448), if a hole's search costs no more than a few loads.  Holes lie
 // in bands along the frame's edges (a flow that moves away from an edge leaves
@@ -90,7 +101,9 @@ __device__ int2 scan_row(const float* row, int x_left_end, int x_right_begin,
 // up to 2 x 132 tiles runs in one wave.
 __global__ void __launch_bounds__(TILE * 32, 2)
     flow_project_finalize_kernel(const float* __restrict__ acc,
-                                 float* __restrict__ out, int h, int w) {
+                                 float* __restrict__ out, int h, int w, int row_lo,
+                                 int row_hi, const float* __restrict__ carry_up,
+                                 const float* __restrict__ carry_down) {
   __shared__ float2 means[TILE][TILE];
   __shared__ unsigned rowbits[TILE], colbits[TILE];
   __shared__ unsigned scan_up[SCAN_ROWS], scan_down[SCAN_ROWS];
@@ -150,15 +163,16 @@ __global__ void __launch_bounds__(TILE * 32, 2)
   }
   __syncthreads();
 
-  // along the column: the column's word from the row words
-  const unsigned col = __ballot_sync(FULL, (rowbits[lane] >> r) & 1u);
+  // along the column: the column's word from the interior row words
+  const bool interior_row = y0 + lane >= row_lo && y0 + lane < row_hi;
+  const unsigned col = __ballot_sync(FULL, interior_row && ((rowbits[lane] >> r) & 1u));
   if (lane == 0) colbits[r] = col;
   __syncthreads();
   const unsigned cbits = colbits[lane];
   const unsigned umask = cbits & ((1u << r) - 1u);
   const unsigned dmask = cbits & (r == 31 ? 0u : FULL << (r + 1));
-  const unsigned nu = __ballot_sync(FULL, hole && !umask && y0 > 0);
-  const unsigned nd = __ballot_sync(FULL, hole && !dmask && y0 + TILE < h);
+  const unsigned nu = __ballot_sync(FULL, hole && !umask && y0 > row_lo);
+  const unsigned nd = __ballot_sync(FULL, hole && !dmask && y0 + TILE < row_hi);
   if (lane == 0) {
     if (nu) atomicOr(&need_up, nu);
     if (nd) atomicOr(&need_down, nd);
@@ -167,16 +181,17 @@ __global__ void __launch_bounds__(TILE * 32, 2)
   // beyond the tile: rounds of SCAN_ROWS rows up and down together; the warp
   // of row j resolves column j
   for (int k0 = 0;; k0 += SCAN_ROWS) {
-    const unsigned todo_up = y0 - k0 > 0 ? need_up : 0u;
-    const unsigned todo_down = y0 + TILE + k0 < h ? need_down : 0u;
+    const unsigned todo_up = y0 - k0 > row_lo ? need_up : 0u;
+    const unsigned todo_down = y0 + TILE + k0 < row_hi ? need_down : 0u;
     if (!(todo_up | todo_down)) break;
     float vu[SCAN_ROW_WORDS], vd[SCAN_ROW_WORDS];
 #pragma unroll
     for (int k = 0; k < SCAN_ROW_WORDS; ++k) {
       const int yu = y0 - 1 - (k0 + r * SCAN_ROW_WORDS + k);
       const int yd = y0 + TILE + k0 + r * SCAN_ROW_WORDS + k;
-      vu[k] = todo_up && yu >= 0 && x < w ? cnt[yu * w + x] : 0.0f;
-      vd[k] = todo_down && yd < h && x < w ? cnt[yd * w + x] : 0.0f;
+      vu[k] = todo_up && yu >= row_lo && yu < row_hi && x < w ? cnt[yu * w + x] : 0.0f;
+      vd[k] = todo_down && yd >= row_lo && yd < row_hi && x < w ? cnt[yd * w + x]
+                                                                : 0.0f;
     }
 #pragma unroll
     for (int k = 0; k < SCAN_ROW_WORDS; ++k) {
@@ -231,14 +246,21 @@ __global__ void __launch_bounds__(TILE * 32, 2)
   if (!rmask && xr >= 0) beyond[1] = mean_at(sums, hw, row + xr);
   if (!umask && yu >= 0) beyond[2] = mean_at(sums, hw, yu * w + x);
   if (!dmask && yd >= 0) beyond[3] = mean_at(sums, hw, yd * w + x);
+  // a column with no filled interior cell up (down) takes the carry, if any
+  const long long cq = 3LL * blockIdx.z * w + x;
+  const bool take_up = !umask && yu < 0 && carry_up != nullptr && carry_up[cq + 2LL * w] > 0.0f;
+  const bool take_down =
+      !dmask && yd < 0 && carry_down != nullptr && carry_down[cq + 2LL * w] > 0.0f;
+  if (take_up) beyond[2] = make_float2(carry_up[cq], carry_up[cq + w]);
+  if (take_down) beyond[3] = make_float2(carry_down[cq], carry_down[cq + w]);
   if (lmask) add(means[r][31 - __clz(lmask)]);
   else if (xl >= 0) add(beyond[0]);
   if (rmask) add(means[r][__ffs(rmask) - 1]);
   else if (xr >= 0) add(beyond[1]);
   if (umask) add(means[31 - __clz(umask)][lane]);
-  else if (yu >= 0) add(beyond[2]);
+  else if (yu >= 0 || take_up) add(beyond[2]);
   if (dmask) add(means[__ffs(dmask) - 1][lane]);
-  else if (yd >= 0) add(beyond[3]);
+  else if (yd >= 0 || take_down) add(beyond[3]);
   ox[q] = den > 0.0f ? nx / den : 0.0f;
   oy[q] = den > 0.0f ? ny / den : 0.0f;
 }
@@ -246,10 +268,17 @@ __global__ void __launch_bounds__(TILE * 32, 2)
 }  // namespace
 
 // Frames of fewer than 2^31 cells (the offsets inside a frame are 32-bit).
+// row_lo, row_hi: the rows that the up and down searches cover (0 and h outside
+// a row-sharded frame); carry_up, carry_down (N,3,W) or NULL: no carry.
 extern "C" int vfidkr_flow_project_finalize(const float* acc, float* out, int n,
-                                            int h, int w, cudaStream_t stream) {
+                                            int h, int w, int row_lo, int row_hi,
+                                            const float* carry_up,
+                                            const float* carry_down,
+                                            cudaStream_t stream) {
   if ((long long)h * w > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (row_lo < 0 || row_hi > h || row_lo > row_hi) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE, n);
-  flow_project_finalize_kernel<<<grid, TILE * 32, 0, stream>>>(acc, out, h, w);
+  flow_project_finalize_kernel<<<grid, TILE * 32, 0, stream>>>(
+      acc, out, h, w, row_lo, row_hi, carry_up, carry_down);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,17 @@
 //   valid = 0 <= x2 <= W-1 && 0 <= y2 <= H-1      (no |f| < W/2 term here)
 //   ix_l = floor(x2), ix_r = min(ix_l+1, W-1), iy_t = floor(y2), iy_b = min(iy_t+1, H-1)
 //   each of the 4 targets (iy_t|iy_b, ix_l|ix_r) gets += (-fx*d, -fy*d, d)
+// A row-sharded frame (vfidkr_torch/parallel/spatial.py) runs this on a block of
+// h rows whose local row 0 is global row row0 (negative on the first shard, whose
+// top halo rows replicate row 0) of a frame hg rows high; the row terms then hold
+// in the frame's coordinates, as _landing's do under a spatial frame
+// (vfidkr_tpu/ops/flow_projection.py:49-89):
+//   y2 = (y + row0) + fy       (the frame's row: rounded as the whole frame's is)
+//   valid = 0 <= x2 <= W-1 && 0 <= y2 <= hg-1 && 0 <= y+row0 <= hg-1
+//   iy_t = min(max(floor(y2) - row0, 0), h-1), iy_b = min(iy_t+1, hg-1-row0, h-1)
+// (the last term of valid masks the phantom rows outside the frame; the clamp of
+// iy_t binds only for a flow that reaches past the block).  Outside a sharded frame
+// row0 = 0 and hg = h, and the terms reduce to those above.
 // At the right and bottom border two targets are the same cell, which then gets
 // two adds: the reference does the same.  acc (N,3,H,W) must be zeroed by the
 // caller; channel 2 is the hit count, or the weight sum.
@@ -63,8 +74,8 @@ template <int VEC>
 __global__ void __launch_bounds__(THREADS)
     flow_project_scatter_kernel(const float* __restrict__ flow,
                                 const float* __restrict__ weight,
-                                float* __restrict__ acc, int h, int w,
-                                int* direct_tiles) {
+                                float* __restrict__ acc, int h, int w, int row0,
+                                int hg, int* direct_tiles) {
   __shared__ __align__(16) float box[3][BOX_MAX];
   __shared__ unsigned red[4][TH];
 
@@ -85,13 +96,14 @@ __global__ void __launch_bounds__(THREADS)
     fy = flow[(2LL * b + 1) * hw + p];
     if (weight != nullptr) d = weight[b * hw + p];
     const float x2 = (float)x + fx;
-    const float y2 = (float)y + fy;
-    valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) && y2 <= (float)(h - 1);
+    const float y2 = (float)(y + row0) + fy;
+    valid = x2 >= 0.0f && y2 >= 0.0f && x2 <= (float)(w - 1) &&
+            y2 <= (float)(hg - 1) && y + row0 >= 0 && y + row0 <= hg - 1;
     if (valid) {
       ix_l = (int)floorf(x2);
-      iy_t = (int)floorf(y2);
+      iy_t = min(max((int)floorf(y2) - row0, 0), h - 1);
       ix_r = min(ix_l + 1, w - 1);
-      iy_b = min(iy_t + 1, h - 1);
+      iy_b = min(min(iy_t + 1, hg - 1 - row0), h - 1);
     }
   }
   const float v[3] = {-fx * d, -fy * d, d};
@@ -206,18 +218,20 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // flow (N,2,H,W); weight (N,H,W) may be NULL: every valid pixel then weighs 1.
+// row0, hg: the block's place in a row-sharded frame (0 and h outside one).
 // direct_tiles (or NULL): gains the number of tiles that took the direct adds.
 extern "C" int vfidkr_flow_project_scatter(const float* flow, const float* weight,
-                                           float* acc, int n, int h, int w,
-                                           int* direct_tiles, cudaStream_t stream) {
+                                           float* acc, int n, int h, int w, int row0,
+                                           int hg, int* direct_tiles,
+                                           cudaStream_t stream) {
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   const dim3 block(TW, TH);
   if (w % 4 == 0 && reinterpret_cast<std::uintptr_t>(acc) % 16 == 0)
-    flow_project_scatter_kernel<4><<<grid, block, 0, stream>>>(flow, weight, acc, h,
-                                                                w, direct_tiles);
+    flow_project_scatter_kernel<4><<<grid, block, 0, stream>>>(
+        flow, weight, acc, h, w, row0, hg, direct_tiles);
   else
-    flow_project_scatter_kernel<1><<<grid, block, 0, stream>>>(flow, weight, acc, h,
-                                                                w, direct_tiles);
+    flow_project_scatter_kernel<1><<<grid, block, 0, stream>>>(
+        flow, weight, acc, h, w, row0, hg, direct_tiles);
   return (int)cudaGetLastError();
 }

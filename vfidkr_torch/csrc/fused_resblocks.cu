@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int C = 128;                        // channels in and out
@@ -427,10 +429,10 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, without linking libcuda
+// cuTensorMapEncodeTiled from the driver, without linking libcuda; looked up
+// once a process (a function-local static is initialised once, thread-safe)
 EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  static const EncodeTiled fn = []() -> EncodeTiled {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -441,9 +443,24 @@ EncodeTiled encode_tiled() {
                                                     cudaEnableDefault, &found);
 #endif
     if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+      return reinterpret_cast<EncodeTiled>(p);
+    return nullptr;
+  }();
   return fn;
+}
+
+// The kernel's dynamic shared-memory limit, set once for each device: CUDA
+// keeps function attributes per device, so a process that drives several
+// cards sets it on each (one bit a device ordinal, set by any thread).
+cudaError_t configure_device(int device) {
+  static std::atomic<unsigned long long> configured{0};
+  const unsigned long long bit = device < 64 ? 1ULL << device : 0ULL;
+  if (bit != 0 && (configured.load() & bit)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_resblocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err == cudaSuccess) configured.fetch_or(bit);
+  return err;
 }
 
 }  // namespace
@@ -453,14 +470,10 @@ EncodeTiled encode_tiled() {
 extern "C" int vfidkr_fused_resblocks(const void* x, const void* w, const void* res,
                                       void* out, int n, int h, int width,
                                       cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_resblocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = configure_device(device);
+  if (err != cudaSuccess) return (int)err;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return 1999;
   // an (N, H, W, 128) bf16 activation in boxes of box_c channels x box_w x box_h;
@@ -500,10 +513,8 @@ extern "C" int vfidkr_fused_resblocks(const void* x, const void* w, const void* 
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return 2000 + (int)r;
 
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (width + TW - 1) / TW;
   const int tiles_y = (h + TH - 1) / TH;

@@ -46,12 +46,12 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vfidkr_torch.utils.image_io import read_rgb
+from vfidkr_torch.utils.image_io import frame_size, read_rgb
 
 __all__ = ["BalancedSampler", "Vimeo90KDataset", "augment_triplet",
-           "decode_pool", "epoch_seed", "load_triplet", "prefetch",
-           "read_frames", "read_triplet_list", "to_tensors", "train_batches",
-           "val_batches", "vimeo90k_splits"]
+           "decode_pool", "draw_augment", "epoch_seed", "load_triplet",
+           "prefetch", "read_frames", "read_triplet_list", "to_tensors",
+           "train_batches", "val_batches", "vimeo90k_splits"]
 
 CROP_HW = (256, 448)
 
@@ -129,26 +129,37 @@ def read_frames(paths: Sequence[str], pool: Optional[Executor] = None
     return list(pool.map(read_rgb, paths))
 
 
+def draw_augment(hw: Tuple[int, int], augment: bool,
+                 rng: np.random.RandomState,
+                 crop_hw: Tuple[int, int] = CROP_HW) -> tuple:
+    """The augmentation of one triplet of (h, w) frames, drawn from ``rng``
+    in the reference's order: (swap, oy, ox, fliplr, flipud)."""
+    swap = bool(augment and rng.randint(0, 2))       # temporal swap
+    ch, cw = crop_hw
+    h, w = hw
+    oy = rng.randint(0, h - ch + 1) if h > ch else 0
+    ox = rng.randint(0, w - cw + 1) if w > cw else 0
+    lr = bool(augment and rng.randint(0, 2))
+    ud = bool(augment and rng.randint(0, 2))
+    return swap, oy, ox, lr, ud
+
+
 def augment_triplet(frames: Sequence[np.ndarray], augment: bool,
                     rng: np.random.RandomState,
                     crop_hw: Tuple[int, int] = CROP_HW):
     """im1, im2, im3 -> one (x0, x1, y) sample, NHWC float32, with the
     reference augmentations, drawn from ``rng`` in the reference's order."""
     first, mid, last = frames
-    if augment and rng.randint(0, 2):
-        first, last = last, first                    # temporal swap
-
+    swap, oy, ox, lr, ud = draw_augment(first.shape[:2], augment, rng,
+                                        crop_hw)
+    if swap:
+        first, last = last, first
     ch, cw = crop_hw
-    h, w = first.shape[:2]
-    oy = rng.randint(0, h - ch + 1) if h > ch else 0
-    ox = rng.randint(0, w - cw + 1) if w > cw else 0
     first, mid, last = (im[oy:oy + ch, ox:ox + cw] for im in (first, mid, last))
-
-    if augment:
-        if rng.randint(0, 2):
-            first, mid, last = (np.fliplr(im) for im in (first, mid, last))
-        if rng.randint(0, 2):
-            first, mid, last = (np.flipud(im) for im in (first, mid, last))
+    if lr:
+        first, mid, last = (np.fliplr(im) for im in (first, mid, last))
+    if ud:
+        first, mid, last = (np.flipud(im) for im in (first, mid, last))
 
     to_f32 = lambda im: np.ascontiguousarray(im, dtype=np.float32) / 255.0
     return to_f32(first), to_f32(last), to_f32(mid)
@@ -187,31 +198,49 @@ class BalancedSampler:
 
 
 class Vimeo90KDataset:
-    """Batches of triplets, NHWC float32: dict(x0=im1, x1=im3, y=im2)."""
+    """Batches of triplets, NHWC float32: dict(x0=im1, x1=im3, y=im2).
+
+    With ``shard`` (a range of batch positions: a data-parallel rank's
+    share) each batch holds only those samples of the global batch, and
+    only their frames are decoded; the others' augmentations are still
+    drawn, from their frames' sizes, so that every rank's random draws
+    stay those of the whole batch."""
 
     def __init__(self, root: str, paths: Sequence[str], batch_size: int,
                  augment: bool = True, seed: int = 0,
                  crop_hw: Tuple[int, int] = CROP_HW,
-                 pool: Optional[Executor] = None):
+                 pool: Optional[Executor] = None,
+                 shard: Optional[range] = None):
         self.root = root
         self.pool = pool
         self.paths = list(paths)
         self.batch_size = batch_size
         self.augment = augment
         self.crop_hw = crop_hw
+        self.shard = range(batch_size) if shard is None else shard
         self.rng = np.random.RandomState(seed)
         self.sampler = BalancedSampler(len(self.paths), seed)
 
     def __len__(self):
         return len(self.paths)
 
+    def _path(self, i, name):
+        return os.path.join(self.root, "sequences", self.paths[i], name)
+
     def _make_batch(self, idxs):
-        frames = read_frames([
-            os.path.join(self.root, "sequences", self.paths[i], n)
-            for i in idxs for n in TRIPLET], self.pool)
-        samples = [augment_triplet(frames[3 * k:3 * k + 3], self.augment,
-                                   self.rng, self.crop_hw)
-                   for k in range(len(idxs))]
+        idxs = list(idxs)
+        own = [idxs[k] for k in self.shard]
+        frames = read_frames([self._path(i, n) for i in own for n in TRIPLET],
+                             self.pool)
+        samples = []
+        for k, i in enumerate(idxs):
+            if k in self.shard:
+                j = 3 * len(samples)
+                samples.append(augment_triplet(frames[j:j + 3], self.augment,
+                                               self.rng, self.crop_hw))
+            else:
+                draw_augment(frame_size(self._path(i, TRIPLET[0])),
+                             self.augment, self.rng, self.crop_hw)
         x0, x1, y = (np.stack(s) for s in zip(*samples))
         return {"x0": x0, "x1": x1, "y": y}
 
@@ -267,18 +296,23 @@ def to_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def train_batches(root: str, paths: Sequence[str], batch_size: int,
                   num_batches: int, seed: int, epoch: int,
-                  pool: Optional[Executor] = None
+                  pool: Optional[Executor] = None,
+                  shard: Optional[range] = None
                   ) -> Iterator[Dict[str, torch.Tensor]]:
-    """One epoch of augmented, balanced-sampled training batches."""
+    """One epoch of augmented, balanced-sampled training batches (``shard``
+    of each, see ``Vimeo90KDataset``)."""
     ds = Vimeo90KDataset(root, paths, batch_size, augment=True,
-                         seed=epoch_seed(seed, epoch), pool=pool)
+                         seed=epoch_seed(seed, epoch), pool=pool, shard=shard)
     return prefetch((to_tensors(b) for b in ds.batches(num_batches)), 2)
 
 
 def val_batches(root: str, paths: Sequence[str], batch_size: int,
-                num_batches: int, pool: Optional[Executor] = None
+                num_batches: int, pool: Optional[Executor] = None,
+                shard: Optional[range] = None
                 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """The first ``num_batches`` validation batches, in order, unaugmented."""
-    ds = Vimeo90KDataset(root, paths, batch_size, augment=False, pool=pool)
+    """The first ``num_batches`` validation batches, in order, unaugmented
+    (``shard`` of each)."""
+    ds = Vimeo90KDataset(root, paths, batch_size, augment=False, pool=pool,
+                         shard=shard)
     return prefetch((to_tensors(b)
                      for b in ds.batches(num_batches, sequential=True)), 2)

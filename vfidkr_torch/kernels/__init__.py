@@ -3,10 +3,17 @@
 ``LAUNCHES[name]`` is a plain integer that ``launch`` raises by one each time
 it launches kernel ``name``, and nowhere else, so a run can show that its
 main path went through the kernels.  ``reset_launches`` sets every count
-to 0.
+to 0.  The counts are raised under a lock: the shards of a row-sharded
+forward (``vfidkr_torch.parallel.spatial``) launch from threads of their own.
+Inside ``record_launches()`` each launch also keeps its name and arguments,
+so that a check can hold every launch of a run to the kernel's plain version
+on the same inputs.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -17,11 +24,32 @@ KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
            "flow_project_scatter_bwd", "filter_interpolate_ctx",
            "fused_resblocks", "depth_flow_project_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+_LOCK = threading.Lock()
+_RECORDS: list | None = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Yield a list that gains ``(name, args)`` for every launch made inside
+    the context, from any thread; the tensors are the launch's own (its
+    outputs hold the kernel's results once their stream has run)."""
+    global _RECORDS
+    records: list = []
+    with _LOCK:
+        if _RECORDS is not None:
+            raise RuntimeError("record_launches is already active")
+        _RECORDS = records
+    try:
+        yield records
+    finally:
+        with _LOCK:
+            _RECORDS = None
 
 
 def check_inputs(name: str, *tensors: torch.Tensor,
@@ -54,4 +82,7 @@ def launch(name: str, *args) -> None:
         err = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    with _LOCK:
+        LAUNCHES[name] += 1
+        if _RECORDS is not None:
+            _RECORDS.append((name, args))

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -32,29 +33,36 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes: device pointers, int sizes, then the stream.
 SIGNATURES = {
-    # image, flow, filt, out, n, c, h, w, stream
-    "vfidkr_filter_interpolate_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # image, flow, filt, out, n, c, h, w, row0, hg, stream; row0 and hg place
+    # the block's rows in a row-sharded frame: the global row of local row 0
+    # (negative on the first shard) and the frame's height (0 and h outside
+    # a sharded frame)
+    "vfidkr_filter_interpolate_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _P],
     # image, flow, filt, g, gimage (or NULL), gflow, gfilt, n, c, h, w, stream
     "vfidkr_filter_interpolate_bwd": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _P],
-    # image, flow, filt, out, n, c, h, w, direct-gather tile count (or NULL),
-    # stream
-    "vfidkr_filter_interpolate_ctx": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # flow, weight (or NULL), acc, n, h, w, direct-add tile count (or NULL),
-    # stream
-    "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # image, flow, filt, out, n, c, h, w, row0, hg, direct-gather tile count
+    # (or NULL), stream
+    "vfidkr_filter_interpolate_ctx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P, _P],
+    # flow, weight (or NULL), acc, n, h, w, row0, hg, direct-add tile count
+    # (or NULL), stream
+    "vfidkr_flow_project_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # flow, g, gflow, n, h, w, stream
     "vfidkr_flow_project_scatter_bwd": [_P, _P, _P, _I, _I, _I, _P],
     # flow, depth, g, cnt, out, gflow, gdepth (or NULL), n, h, w, stream
     "vfidkr_depth_flow_project_bwd": [_P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _P],
-    # acc, out, n, h, w, stream
-    "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _P],
+    # acc, out, n, h, w, first and end interior row of the up/down search,
+    # carry_up and carry_down (N,3,W) (or NULL: no carry), stream
+    "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, w (one conv's packed taps), res (or NULL), out (NHWC), n, h, w, stream
     "vfidkr_fused_resblocks": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIB = None
+_LOAD_LOCK = threading.Lock()
 BUILD_LOG = ""          # nvcc's output (ptxas register/spill report)
 
 
@@ -121,13 +129,15 @@ def build() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (on first use) and load the kernel library."""
+    """Build (on first use) and load the kernel library; the shards of a
+    row-sharded forward may ask for it from several threads at once."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+    with _LOAD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
     return _LIB

@@ -31,6 +31,18 @@ the kernel ``filter_interpolate_bwd``
 (``vfidkr_torch/csrc/filter_interpolate_bwd.cu``, generic in C).  On CPU
 tensors it runs ``filter_interpolate_plain`` for any C, and autograd gives
 its gradient.
+
+Inside a row-sharded frame (``vfidkr_torch.parallel.spatial``) it runs on
+one shard's halo-extended block, whose local row 0 is the frame's row
+``row0``, and the row terms hold in the frame's coordinates, as JAX's
+``_window_geometry`` has them (``vfidkr_tpu/ops/filter_interpolation.py:43-86``):
+``y2 = (y + row0) + fy`` is the frame's row (rounded as the whole frame's,
+see ``flow_projection._landing``), valid iff ``0 <= y2 <= hg-1`` and
+``|fy| < hg/2`` (``hg`` the frame's height), ``y2`` clamped to the frame and
+then to the block.  The tap
+clamp is the block's: the halo replicates the frame's edge rows.  Both
+kernels and the plain version take ``row0, hg``; nothing takes a gradient
+inside a frame.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from __future__ import annotations
 import torch
 
 from vfidkr_torch import kernels
+from vfidkr_torch.parallel.spatial import no_grad_in_frame, row_frame
 
 FILTER_SIZE = 4
 MAX_NARROW_C = 8       # widest tensor that filter_interpolate_fwd takes
@@ -57,29 +70,33 @@ def _check_shapes(image, flow, filt):
 
 
 def filter_interpolate_plain(image: torch.Tensor, flow: torch.Tensor,
-                             filt: torch.Tensor) -> torch.Tensor:
+                             filt: torch.Tensor, row0: int = 0,
+                             hg: int | None = None) -> torch.Tensor:
     """Plain PyTorch version: 16 clamped tap gathers, weighted and summed in
-    tap order."""
+    tap order.  ``row0, hg``: the block's place in a row-sharded frame
+    (default: the whole frame)."""
     _check_shapes(image, flow, filt)
     n, c, h, w = image.shape
+    hg = h if hg is None else hg
     fx, fy = flow[:, 0], flow[:, 1]
     xx = torch.arange(w, dtype=torch.float32, device=image.device)
     yy = torch.arange(h, dtype=torch.float32, device=image.device).view(h, 1)
     x2 = xx + fx
-    y2 = yy + fy
-    valid = ((x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
-             & (fx.abs() < w / 2) & (fy.abs() < h / 2))
+    y2 = (yy + row0) + fy               # the frame's row (see _landing)
+    valid = ((x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= hg - 1)
+             & (fx.abs() < w / 2) & (fy.abs() < hg / 2))
 
     # clamped coordinates keep the masked-out invalid pixels in range; for
-    # valid pixels the clamp is the identity
+    # valid pixels the frame's clamp is the identity, and the block's binds
+    # only for a flow that reaches past the block
     x2s = x2.clamp(0, w - 1)
-    y2s = y2.clamp(0, h - 1)
+    y2s = y2.clamp(0, hg - 1).clamp(row0, row0 + h - 1)
     x0 = torch.floor(x2s)
     y0 = torch.floor(y2s)
     alpha = x2s - x0
     beta = y2s - y0
     ix = x0.long()
-    iy = y0.long()
+    iy = y0.long() - row0
 
     flat = image.reshape(n, c, h * w)
     out = torch.zeros_like(image)
@@ -105,7 +122,7 @@ def forward_kernel(c: int) -> str:
 def _launch_ctx(image, flow, filt, direct_tiles):
     out = torch.empty_like(image)
     kernels.launch("filter_interpolate_ctx", image, flow, filt, out,
-                   *image.shape, direct_tiles)
+                   *image.shape, *row_frame(image.shape[2]), direct_tiles)
     return out
 
 
@@ -139,7 +156,8 @@ class _FilterInterpolateKernel(torch.autograd.Function):
         if name == "filter_interpolate_ctx":
             return _launch_ctx(image, flow, filt, None)
         out = torch.empty_like(image)
-        kernels.launch(name, image, flow, filt, out, n, c, h, w)
+        kernels.launch(name, image, flow, filt, out, n, c, h, w,
+                       *row_frame(h))
         return out
 
     @staticmethod
@@ -163,6 +181,8 @@ def filter_interpolate(image: torch.Tensor, flow: torch.Tensor,
     """Warp ``image`` (N,C,H,W) by ``flow`` (N,2,H,W) with the per-pixel 4x4
     kernels ``filt`` (N,16,H,W).  Returns (N,C,H,W) float32."""
     _check_shapes(image, flow, filt)
+    no_grad_in_frame("filter_interpolate", image, flow, filt)
     if image.device.type == "cpu":
-        return filter_interpolate_plain(image, flow, filt)
+        return filter_interpolate_plain(image, flow, filt,
+                                        *row_frame(image.shape[2]))
     return _FilterInterpolateKernel.apply(image, flow, filt)

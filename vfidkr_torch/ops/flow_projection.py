@@ -41,6 +41,19 @@ to the last bits; a count is exact in any order, a weight sum is not.  The
 training count average is plain PyTorch on both devices, as it is XLA in the
 JAX package.
 
+Inside a row-sharded frame (``vfidkr_torch.parallel.spatial``) the ops run
+on one shard's halo-extended block and give the frame's own results there,
+as JAX's ``_landing`` and sharded ``fill_holes`` do
+(``vfidkr_tpu/ops/flow_projection.py:49-89,297-351``): the row bounds of a
+landing are the frame's, a phantom source row (above or below the frame, in
+the first or last shard's halo) adds nothing, and the hole fill searches up
+and down over the shard's interior rows only, a column with no filled cell
+there taking the nearest filled cell of the shards above (below), gathered
+from every shard's first and last filled interior cell (``fill_summary``,
+``fill_carries``).  The kernels take the block's place in the frame as
+arguments (``row0, hg``; the interior rows and the carries), and so do the
+plain versions.  Nothing takes a gradient inside a frame.
+
 The depth-weighted projection's gradient is the reference's, not the
 autodiff of its forward: its depth gradient has ``(f - out)`` where autodiff
 gives ``(f + out)`` (``vfidkr_tpu/ops/flow_projection.py:545-581``).  So
@@ -56,6 +69,8 @@ from __future__ import annotations
 import torch
 
 from vfidkr_torch import kernels
+from vfidkr_torch.parallel.spatial import (global_row_frame, no_grad_in_frame,
+                                           row_frame)
 
 
 def _check_flow(flow):
@@ -75,24 +90,44 @@ def _check_weight(weight, flow):
                          f"{tuple(weight.shape)}")
 
 
-def scatter4_targets(flow: torch.Tensor, weight: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The scatter's targets and values: (4, N·H·W) flat cell indices into
-    (N·H·W) planes (top-left, top-right, bottom-left, bottom-right) and the
-    (3, N·H·W) values each pixel adds at all four, 0 where it lands outside
-    the frame."""
-    _check_flow(flow)
-    _check_weight(weight, flow)
+def _landing(flow, row0, hg):
+    """Per pixel: fx, fy, valid and the clamped left, right, top and bottom
+    target cells, for a block whose row 0 is the frame's row ``row0`` of
+    ``hg``.  The landing row is the frame's, ``(y + row0) + fy``, rounded as
+    the whole frame's is (JAX adds the block's row: the two can round apart
+    by an ulp where a landing meets a row), so a sharded frame lands where
+    the whole one does."""
     n, _, h, w = flow.shape
     dev = flow.device
     fx, fy = flow[:, 0], flow[:, 1]
     x2 = torch.arange(w, dtype=torch.float32, device=dev) + fx
-    y2 = torch.arange(h, dtype=torch.float32, device=dev).view(h, 1) + fy
-    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
+    yg = torch.arange(h, dtype=torch.float32, device=dev).view(h, 1) + row0
+    y2 = yg + fy
+    valid = ((x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= hg - 1)
+             & (yg >= 0) & (yg <= hg - 1))
     ix_l = torch.floor(x2).clamp(0, w - 1).long()
-    iy_t = torch.floor(y2).clamp(0, h - 1).long()
+    # the frame's clamp, then the block's (which binds only for a flow that
+    # reaches past the block)
+    iy_t = (torch.floor(y2).clamp(0, hg - 1) - row0).clamp(0, h - 1).long()
     ix_r = (ix_l + 1).clamp(max=w - 1)
-    iy_b = (iy_t + 1).clamp(max=h - 1)
+    iy_b = (iy_t + 1).clamp(max=min(hg - 1 - row0, h - 1))
+    return fx, fy, valid, ix_l, ix_r, iy_t, iy_b
+
+
+def scatter4_targets(flow: torch.Tensor, weight: torch.Tensor | None = None,
+                     row0: int = 0, hg: int | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scatter's targets and values: (4, N·H·W) flat cell indices into
+    (N·H·W) planes (top-left, top-right, bottom-left, bottom-right) and the
+    (3, N·H·W) values each pixel adds at all four, 0 where it lands outside
+    the frame.  ``row0, hg``: the block's place in a row-sharded frame
+    (default: the whole frame)."""
+    _check_flow(flow)
+    _check_weight(weight, flow)
+    n, _, h, w = flow.shape
+    dev = flow.device
+    fx, fy, valid, ix_l, ix_r, iy_t, iy_b = _landing(
+        flow, row0, h if hg is None else hg)
 
     if weight is None:
         vals = torch.stack([torch.where(valid, -fx, 0.0),
@@ -106,10 +141,10 @@ def scatter4_targets(flow: torch.Tensor, weight: torch.Tensor | None = None
     return idx, vals.reshape(3, n * h * w)
 
 
-def scatter4_plain(flow: torch.Tensor,
-                   weight: torch.Tensor | None = None) -> torch.Tensor:
+def scatter4_plain(flow: torch.Tensor, weight: torch.Tensor | None = None,
+                   row0: int = 0, hg: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the scatter: four ``index_add_`` passes."""
-    idx, vals = scatter4_targets(flow, weight)
+    idx, vals = scatter4_targets(flow, weight, row0, hg)
     n, _, h, w = flow.shape
     acc = torch.zeros(3, n * h * w, dtype=torch.float32, device=flow.device)
     for target in idx:
@@ -123,7 +158,7 @@ def _launch_scatter4(flow, weight, direct_tiles=None):
     n, _, h, w = flow.shape
     acc = torch.zeros((n, 3, h, w), dtype=torch.float32, device=flow.device)
     kernels.launch("flow_project_scatter", flow, weight, acc, n, h, w,
-                   direct_tiles)
+                   *row_frame(h), direct_tiles)
     return acc
 
 
@@ -174,8 +209,9 @@ def scatter4(flow: torch.Tensor,
         raise RuntimeError("the depth-weighted scatter has no backward of "
                            "its own: take the gradient through "
                            "depth_flow_project")
+    no_grad_in_frame("scatter4", flow)
     if flow.device.type == "cpu":
-        return scatter4_plain(flow, weight)
+        return scatter4_plain(flow, weight, *row_frame(flow.shape[2]))
     if weight is None:
         return _Scatter4Kernel.apply(flow)
     return _launch_scatter4(flow, weight)
@@ -193,17 +229,40 @@ def _nearest_filled(out, filled, dim):
     return out.gather(dim + 1, idx), last >= 0
 
 
-def fill_holes(count: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def _carried(v, e, carry):
+    """A search's (value, found) with ``carry`` (N,3,W) taken where nothing
+    was found and the carry exists."""
+    if carry is None:
+        return v, e
+    take = ~e & (carry[:, 2] > 0).unsqueeze(1)
+    v = torch.where(take.unsqueeze(1), carry[:, :2].unsqueeze(2), v)
+    return v, e | take
+
+
+def fill_holes(count: torch.Tensor, out: torch.Tensor,
+               interior: tuple[int, int] | None = None,
+               carry_up: torch.Tensor | None = None,
+               carry_down: torch.Tensor | None = None) -> torch.Tensor:
     """Fill the cells with ``count <= 0`` with the mean of the nearest
     filled cell to the left, right, top and bottom (summed in that order);
     filled cells, and holes with no filled cell in any direction, pass
-    through.  count (N,H,W), out (N,2,H,W) -> (N,2,H,W)."""
+    through.  count (N,H,W), out (N,2,H,W) -> (N,2,H,W).
+
+    In a row-sharded frame the top and bottom searches cover the rows
+    ``interior`` = [lo, hi) only, and a hole that finds none there takes
+    ``carry_up`` / ``carry_down`` (N,3,W, see ``fill_carries``) where it
+    exists."""
     filled = count > 0
-    found = []
-    for dim in (2, 1):                 # along rows (left, right), columns
-        found.append(_nearest_filled(out, filled, dim))
-        v, e = _nearest_filled(out.flip(dim + 1), filled.flip(dim), dim)
-        found.append((v.flip(dim + 1), e.flip(dim)))
+    vertical = filled
+    if interior is not None:
+        rows = torch.arange(count.shape[1], device=count.device).view(-1, 1)
+        vertical = filled & (rows >= interior[0]) & (rows < interior[1])
+    found = [_nearest_filled(out, filled, 2)]              # left
+    v, e = _nearest_filled(out.flip(3), filled.flip(2), 2)
+    found.append((v.flip(3), e.flip(2)))                   # right
+    found.append(_carried(*_nearest_filled(out, vertical, 1), carry_up))
+    v, e = _nearest_filled(out.flip(2), vertical.flip(1), 1)
+    found.append(_carried(v.flip(2), e.flip(1), carry_down))
     num = torch.zeros_like(out)
     den = torch.zeros_like(count)
     for v, e in found:
@@ -222,27 +281,88 @@ def _count_average(acc):
     return torch.where(cnt > 0, acc[:, :2] / cnt.clamp(min=1e-30), 0.0)
 
 
-def finalize_plain(acc: torch.Tensor) -> torch.Tensor:
+def fill_summary(acc: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """What a shard's hole fill tells the others: (N,2,3,W), for each column
+    the mean of its last ([:, 0]) and first ([:, 1]) filled cell among rows
+    [lo, hi) of the scatter sums ``acc``, and 1 where there is one (else 0
+    and a mean of 0)."""
+    n, _, _, w = acc.shape
+    rows = hi - lo
+    block = acc[:, :, lo:hi]
+    filled = block[:, 2] > 0
+    pos = torch.arange(rows, device=acc.device).view(1, rows, 1)
+    last = torch.where(filled, pos, -1).amax(1)
+    first = torch.where(filled, pos, rows).amin(1)
+    parts = []
+    for row, found in ((last, last >= 0), (first, first < rows)):
+        idx = row.clamp(0, rows - 1).view(n, 1, 1, w).expand(n, 3, 1, w)
+        cell = block.gather(2, idx).squeeze(2)               # (N,3,W)
+        mean = cell[:, :2] / cell[:, 2:].clamp(min=1e-30)
+        parts.append(torch.cat([torch.where(found.unsqueeze(1), mean, 0.0),
+                                found.unsqueeze(1).float()], 1))
+    return torch.stack(parts, 1)
+
+
+def fill_carries(summaries: torch.Tensor, index: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shard ``index``'s carries from every shard's ``fill_summary``
+    (n,N,2,3,W): up, the last filled cell of the nearest shard above with
+    one in the column; down, the first of the nearest shard below.  Each
+    (N,3,W): mean x, mean y, and 1 where such a shard exists."""
+    up = torch.zeros_like(summaries[0, :, 0])
+    down = torch.zeros_like(up)
+    for j in range(index):
+        s = summaries[j, :, 0]
+        up = torch.where(s[:, 2:] > 0, s, up)
+    for j in range(summaries.shape[0] - 1, index, -1):
+        s = summaries[j, :, 1]
+        down = torch.where(s[:, 2:] > 0, s, down)
+    return up, down
+
+
+def _fill_frame(acc):
+    """(interior rows, carry_up, carry_down) of the fill of ``acc`` inside a
+    spatial frame, after gathering every shard's summary; (None, None,
+    None) outside one."""
+    frame = global_row_frame(acc.shape[2])
+    if frame is None:
+        return None, None, None
+    _, _, axis, halo = frame
+    interior = (halo, acc.shape[2] - halo)
+    summaries = axis.all_gather(fill_summary(acc, *interior))
+    return (interior, *fill_carries(summaries, axis.index))
+
+
+def finalize_plain(acc: torch.Tensor, interior: tuple[int, int] | None = None,
+                   carry_up: torch.Tensor | None = None,
+                   carry_down: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of the (weighted) average and hole fill."""
     _check_acc(acc)
-    return fill_holes(acc[:, 2], _count_average(acc))
+    return fill_holes(acc[:, 2], _count_average(acc), interior, carry_up,
+                      carry_down)
 
 
 def finalize(acc: torch.Tensor) -> torch.Tensor:
     """(N,3,H,W) scatter sums -> (N,2,H,W) averaged, hole-filled flow.
 
     Inference only: the kernel has no backward, so on CUDA tensors it
-    raises where ``acc`` needs a gradient."""
+    raises where ``acc`` needs a gradient.  Inside a spatial frame every
+    shard must call it: the shards exchange their fill summaries."""
     _check_acc(acc)
+    if acc.device.type != "cpu":
+        if torch.is_grad_enabled() and acc.requires_grad:
+            raise RuntimeError("flow_project_finalize has no backward: the "
+                               "hole fill takes no gradient (detach its "
+                               "input)")
+        kernels.check_inputs("flow_project_finalize", acc)
+    interior, up, down = _fill_frame(acc)
     if acc.device.type == "cpu":
-        return finalize_plain(acc)
-    if torch.is_grad_enabled() and acc.requires_grad:
-        raise RuntimeError("flow_project_finalize has no backward: the hole "
-                           "fill takes no gradient (detach its input)")
-    kernels.check_inputs("flow_project_finalize", acc)
+        return finalize_plain(acc, interior, up, down)
     n, _, h, w = acc.shape
+    lo, hi = (0, h) if interior is None else interior
     out = torch.empty((n, 2, h, w), dtype=torch.float32, device=acc.device)
-    kernels.launch("flow_project_finalize", acc, out, n, h, w)
+    kernels.launch("flow_project_finalize", acc, out, n, h, w, lo, hi,
+                   up, down)
     return out
 
 
@@ -270,15 +390,7 @@ def depth_flow_project_bwd_plain(flow: torch.Tensor, depth: torch.Tensor,
     pixel.  flow, g, out (N,2,H,W); depth, cnt (N,H,W).  Returns (gflow,
     gdepth or None)."""
     n, _, h, w = flow.shape
-    dev = flow.device
-    fx, fy = flow[:, 0], flow[:, 1]
-    x2 = torch.arange(w, dtype=torch.float32, device=dev) + fx
-    y2 = torch.arange(h, dtype=torch.float32, device=dev).view(h, 1) + fy
-    valid = (x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= h - 1)
-    ix_l = torch.floor(x2).clamp(0, w - 1).long()
-    iy_t = torch.floor(y2).clamp(0, h - 1).long()
-    ix_r = (ix_l + 1).clamp(max=w - 1)
-    iy_b = (iy_t + 1).clamp(max=h - 1)
+    fx, fy, valid, ix_l, ix_r, iy_t, iy_b = _landing(flow, 0, h)
 
     a = g / cnt.clamp(min=1e-30).unsqueeze(1)
     field = torch.cat([a, (a * out).sum(1, keepdim=True)], 1) if need_depth \
@@ -362,4 +474,5 @@ def depth_flow_project(flow: torch.Tensor, depth_inv: torch.Tensor,
     n, _, h, w = flow.shape
     if depth_inv.dim() == 4:
         depth_inv = depth_inv.reshape(n, h, w)
+    no_grad_in_frame("depth_flow_project", flow, depth_inv)
     return _DepthFlowProject.apply(flow, depth_inv.contiguous(), hole_fill)

@@ -16,7 +16,7 @@ group by the same factor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -102,16 +102,22 @@ def _model_losses(model, batch, config: TrainConfig):
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], config: TrainConfig,
-               scale: float = 1.0) -> Dict[str, torch.Tensor]:
+               scale: float = 1.0,
+               reduce_grads: Optional[Callable[[nn.Module], None]] = None
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step in train mode (``train.py:178-207``); ``batch``
-    holds x0, x1 and the target y, (B,3,H,W) on the model's device.  The
-    gradients stay in ``p.grad`` until the next step.  Returns the detached
-    metrics: pixel (one per output), tv, sym, total, psnr."""
+    holds x0, x1 and the target y, (B,3,H,W) on the model's device.
+    ``reduce_grads(model)``, where given, runs between the backward and the
+    optimizer step (the data-parallel mean across ranks).  The gradients
+    stay in ``p.grad`` until the next step.  Returns the detached metrics:
+    pixel (one per output), tv, sym, total, psnr."""
     model.train()
     set_lr_scale(optimizer, scale)
     optimizer.zero_grad(set_to_none=True)
     total, metrics = _model_losses(model, batch, config)
     total.backward()
+    if reduce_grads is not None:
+        reduce_grads(model)
     optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 

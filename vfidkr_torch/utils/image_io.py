@@ -40,7 +40,7 @@ import zlib
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
 
-__all__ = ["ZLIB_LEVEL", "read_png", "read_rgb", "write_png"]
+__all__ = ["ZLIB_LEVEL", "frame_size", "read_png", "read_rgb", "write_png"]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # zlib level of write_png: the fastest, since the video driver encodes on
@@ -214,6 +214,21 @@ def read_png(path) -> np.ndarray:
                              f"{len(palette)} entries of PLTE")
         img = palette[img[..., 0]]
     return img
+
+
+def frame_size(path) -> tuple[int, int]:
+    """(H, W) of a frame file, without decoding it: a PNG's IHDR, else
+    PIL's header read."""
+    if str(path).lower().endswith(".png"):
+        with open(path, "rb") as fh:
+            head = fh.read(24)
+        if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+            raise ValueError(f"{path}: not a PNG file with an IHDR chunk")
+        w, h = struct.unpack(">II", head[16:24])
+        return h, w
+    from PIL import Image
+    with Image.open(path) as im:
+        return im.size[1], im.size[0]
 
 
 def read_rgb(path) -> np.ndarray:
