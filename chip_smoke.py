@@ -6,7 +6,8 @@ Middlebury eval app's core in that lane, the N x video driver on a 1280x720
 PNG clip in both lanes, the trainer on PNG triplets from disk with a resume,
 the depth-eval core, the row-sharded op chains and video forward, and the
 data-parallel train step, on one NVIDIA GPU through its eight hand-written
-CUDA kernels, and check them.
+CUDA kernels; then the reference's dormant ops, DAIN's vestigial children
+and the PNG formats past 8-bit, and check them.
 
 Run from the root of the repository, with no arguments:
 
@@ -109,6 +110,23 @@ session comes last (7), since host-bound timings read slower after one:
    3 DAIN train steps at B=3 256x448 against the one-process steps on the
    same weights and batches (losses, the last gradients and the parameters
    per leaf); with two or more cards, world size 2 as well;
+5k. dormant_ops: the reference's dormant ops, plain PyTorch on every device
+   (the deformable filter interpolation, static and deformed, and without
+   the filter; interpolate_bilinear; min_depth_flow_project with and without
+   the hole fill; separable_conv and separable_conv_flow on the 16-tap
+   valid grid) at 2x3x256x448 on the card and the CPU: each forward within
+   ATOL x max(1, |CPU|) (the z-buffer bit for bit), each differentiable
+   input's gradient within ATOL x max(1, max |CPU|), no kernel of the port
+   launched (PATHS["dormant_ops"]), each op's ms a call;
+5l. vestigial: DAIN(init_unused=True), phase 3's model, launches K1-K3 once
+   in one eval forward and equals DAIN(init_unused=False) with the shared
+   weights bit for bit (run_to_run_stable); its reference-layout state dict
+   reloads with strict=True; a train step leaves its three vestigial
+   children unchanged;
+5m. png_depths: four 1280x720 PNGs written by hand (16-bit RGB, 16-bit
+   gray, Adam7 8-bit RGB, 4-bit palette) read back by read_rgb exactly, each
+   read's host ms; the depth-eval CLI on the card on a 16-bit Adam7 PNG with
+   an .sdr.npz sample through the numpy resize (no PIL on the machine);
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -175,12 +193,14 @@ import torch.nn.functional as F
 from vfidkr_torch import kernels
 from vfidkr_torch.apps import demo_middlebury, interpolate_video
 from vfidkr_torch.apps import train as train_app
+from vfidkr_torch import ops as OPS
+from vfidkr_torch.apps import depth_eval
 from vfidkr_torch.apps.depth_eval import evaluate_depth
 from vfidkr_torch.convert import reference_state_dict
 from vfidkr_torch.data import synthetic
 from vfidkr_torch.kernels import build
 from vfidkr_torch.models import DAIN, DAINSlowMotion
-from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP
+from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP, VESTIGIAL
 from vfidkr_torch.models.layers import upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
@@ -192,7 +212,8 @@ from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
 from vfidkr_torch.training.lr_schedule import PlateauState, plateau_step
 from vfidkr_torch.training.train_state import FROZEN, GROUPS
 from vfidkr_torch.utils import pad_to_multiple, unpad
-from vfidkr_torch.utils.image_io import ZLIB_LEVEL, read_png, write_png
+from vfidkr_torch.utils.image_io import (ZLIB_LEVEL, read_png, read_rgb,
+                                         write_png)
 
 # the flows and hole layouts that reach K7's and K3's branches, shared with
 # the card-only tests
@@ -253,6 +274,10 @@ DEPTH_HW, DEPTH_SDR_PAIRS = (256, 320), 200   # the depth phase's samples
 SPATIAL_SHARDS, SPATIAL_HALO, SPATIAL_REACH = 4, 32, 28.0
 VIDEO_SHARDS, VIDEO_HALO = 2, 64
 DP_STEPS = 3                    # the data-parallel phase's train steps
+# the dormant_ops phase: the deformable ops' offsets reach +-1.5 px; the
+# separable ops' filters have 16 taps (output grid (H-15) x (W-15)); the
+# z-buffer's inverse depth is 1 + k/256 for k < 8, so colliding sources tie
+DORMANT_OFFSET, SEP_TAPS, DEPTH_LEVELS = 1.5, 16, 8
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -330,6 +355,11 @@ PATHS["spatial_video"] = {k: VIDEO_PAIRS * VIDEO_SHARDS * n
                           for k, n in PATHS["slowmo_forward"].items()}
 PATHS["data_parallel"] = {k: DP_STEPS * n
                           for k, n in PATHS["train_step"].items()}
+# the reference's dormant ops are plain PyTorch: no kernel of the port
+# launches; the vestigial phase's DAIN(init_unused=True) eval forward is
+# phase 3's
+PATHS["dormant_ops"] = {}
+PATHS["vestigial_eval"] = dict(PATHS["eval_forward"])
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1}
@@ -344,6 +374,17 @@ ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "depth_flow_project_bwd": "K6 C=3 (depth) no depth grad"}
 
 
+def card_label(smi: str | None = None) -> str:
+    """The card's name and power limit as nvidia-smi gives them, the label
+    of every time the newer phases print."""
+    if smi is None:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+    return smi.strip().splitlines()[0]
+
+
 def phase_device() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on an NVIDIA "
@@ -353,7 +394,7 @@ def phase_device() -> torch.device:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     print("[device] nvidia-smi name, power.limit:")
-    print(smi.strip().splitlines()[0])
+    print(card_label(smi))
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(f"[device] TF32 defaults: cudnn.allow_tf32="
@@ -913,10 +954,13 @@ def _compare_k4(shape, x, w6) -> float:
     return err
 
 
-def _grads(fn, inputs, cot):
-    """Gradients of ``fn`` w.r.t. every input under the cotangent ``cot``."""
-    ins = [t.detach().clone().requires_grad_() for t in inputs]
-    return torch.autograd.grad(fn(*ins), ins, cot)
+def _grads(fn, inputs, cot, which=None):
+    """Gradients of ``fn`` under the cotangent ``cot`` w.r.t. the inputs
+    numbered in ``which`` (default: every input)."""
+    which = range(len(inputs)) if which is None else which
+    ins = [t.detach().clone().requires_grad_(i in which)
+           for i, t in enumerate(inputs)]
+    return torch.autograd.grad(fn(*ins), [ins[i] for i in which], cot)
 
 
 def _compare_grad(name, got, want) -> float:
@@ -2671,6 +2715,258 @@ def _data_parallel_two_cards() -> None:
           f"one-process Adamax step's on them")
 
 
+def dormant_cases(g: torch.Generator) -> list:
+    """(name, op, CPU inputs, differentiable inputs, exact) of each dormant
+    op at the DAIN cell's width: both directions of phase 3's frames, a
+    make_flow draw, softmaxed 4x4 filters, offsets within DORMANT_OFFSET,
+    an inverse depth near 1 with ties, and softmaxed 16-tap separable
+    filters with bands that sum to exactly 0 (the -2000 sentinel)."""
+    image = torch.cat(make_frames(g))
+    flow = make_flow(g, N, H, W)
+    filt = torch.softmax(torch.randn(N, 16, H, W, generator=g), 1)
+    offsets = (torch.rand(N, 32, H, W, generator=g) * 2 - 1) * DORMANT_OFFSET
+    depth = 1 + torch.randint(0, DEPTH_LEVELS, (N, H, W), generator=g) / 256
+    ho, wo = H - SEP_TAPS + 1, W - SEP_TAPS + 1
+    vert, horiz = (torch.softmax(torch.randn(N, SEP_TAPS, ho, wo,
+                                             generator=g), 1)
+                   for _ in range(2))
+    vert[:, :, :8] = 0.0
+    horiz[:, :, :, :8] = 0.0
+    deform = lambda q: (lambda *a: OPS.filter_interpolate_deformable(*a, q))
+    return [
+        ("filter_interpolate_deformable static", deform("static"),
+         [image, flow, filt, offsets], (0, 1, 2, 3), False),
+        ("filter_interpolate_deformable deformed", deform("deformed"),
+         [image, flow, filt, offsets], (0, 1, 2, 3), False),
+        ("filter_interpolate_nofilter_deformable",
+         OPS.filter_interpolate_nofilter_deformable, [image, flow, offsets],
+         (0, 1, 2), False),
+        ("interpolate_bilinear", OPS.interpolate_bilinear, [image, flow],
+         (0, 1), False),
+        ("min_depth_flow_project", OPS.min_depth_flow_project, [flow, depth],
+         (0,), True),
+        ("min_depth_flow_project hole_fill",
+         lambda f, d: OPS.min_depth_flow_project(f, d, hole_fill=True),
+         [flow, depth], (0,), True),
+        ("separable_conv", OPS.separable_conv, [image, vert, horiz],
+         (0, 1, 2), False),
+        ("separable_conv_flow", OPS.separable_conv_flow, [vert, horiz],
+         (0, 1), False)]
+
+
+def phase_dormant_ops(dev: torch.device, card: str) -> dict:
+    """The reference's dormant ops (plain PyTorch on every device) on the
+    card and on the CPU at 2x3x256x448: each forward within ATOL x max(1,
+    |CPU|) (min_depth_flow_project bit for bit: a max and an integer
+    tie-break have no order), each differentiable input's gradient under a
+    random cotangent within ATOL x max(1, max |CPU gradient|), and no kernel
+    of the port launched; each op's forward ms a call (CUDA events, median
+    of 20 after 3 warm-up).  Returns the launches."""
+    g = torch.Generator().manual_seed(11)
+    cases = dormant_cases(g)
+    kernels.reset_launches()
+    for name, fn, inputs, which, exact in cases:
+        gpu = [x.to(dev) for x in inputs]
+        with torch.no_grad():
+            got, want = fn(*gpu), fn(*inputs)
+        torch.cuda.synchronize()
+        diff = (got.cpu() - want).abs()
+        scaled = (diff / want.abs().clamp(min=1.0)).max().item()
+        same = torch.equal(got.cpu(), want)
+        print(f"[dormant_ops] {name} {tuple(got.shape)}: forward max |card - "
+              f"CPU| = {diff.max().item():.3e}, scaled by max(1, |CPU|) = "
+              f"{scaled:.3e}, bit-equal {same} (tolerance "
+              f"{'bit-equal' if exact else f'{ATOL:.0e}'})")
+        if not (same if exact else scaled <= ATOL):
+            raise AssertionError(f"dormant_ops {name}: the card and the CPU "
+                                 f"disagree")
+        if name == "separable_conv_flow":
+            sentinel = int((want == -2000.0).sum())
+            if not sentinel or not torch.equal(got.cpu() == -2000.0,
+                                               want == -2000.0):
+                raise AssertionError("separable_conv_flow: the sentinel")
+            print(f"[dormant_ops] {name}: {sentinel} sentinel values, the "
+                  f"same cells on both")
+        cot = torch.randn(want.shape, generator=g)
+        for i, a, b in zip(which, _grads(fn, gpu, cot.to(dev), which),
+                           _grads(fn, inputs, cot, which)):
+            err = (a.cpu() - b).abs().max().item()
+            tol = ATOL * max(1.0, b.abs().max().item())
+            print(f"[dormant_ops] {name} gradient of input {i}: max |card - "
+                  f"CPU| = {err:.3e} (tolerance {tol:.3e} = {ATOL:.0e} x "
+                  f"max(1, max |CPU|))")
+            if not err <= tol:
+                raise AssertionError(f"dormant_ops {name} gradient {i}: "
+                                     f"{err} exceeds {tol}")
+        with torch.no_grad():
+            t = cuda_times_ms(lambda: fn(*gpu), warmup=3, iters=20)
+        print(f"[times] dormant_ops {name} at {tuple(gpu[0].shape)}: "
+              f"{statistics.median(t):.3f} ms a call (CUDA events, median of "
+              f"{len(t)} after 3 warm-up; min {t[0]:.3f}, max {t[-1]:.3f}) "
+              f"on {card}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _check_launches("dormant_ops", launches)
+    print(f"[dormant_ops] launches of the port's kernels: {launches}")
+    return launches
+
+
+def _vestigial_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.startswith(VESTIGIAL)}
+
+
+def phase_vestigial(dev: torch.device, card: str) -> dict:
+    """DAIN(init_unused=True) (phase 3's model) on the card: one 448x256
+    eval forward launches K1, K2 and K3 once each; its outputs equal
+    DAIN(init_unused=False) loaded with the shared weights bit for bit
+    (K2 summed on the host and cuDNN deterministic, run_to_run_stable); its
+    reference-layout state dict, saved and read back, loads into a fresh
+    DAIN with strict=True; one train step leaves the three vestigial
+    children unchanged.  Returns the eval forward's launches."""
+    t0 = time.perf_counter()
+    full = make_model().eval().to(dev)
+    lean = DAIN(generator=torch.Generator().manual_seed(0),
+                init_unused=False)
+    lean.load_state_dict({k: v for k, v in full.state_dict().items()
+                          if not k.startswith(VESTIGIAL)}, strict=True)
+    lean = lean.eval().to(dev)
+    i0, i2 = (x.to(dev) for x in make_frames(torch.Generator().manual_seed(1)))
+    with torch.inference_mode():
+        kernels.reset_launches()
+        full(i0, i2)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    _check_launches("vestigial_eval", launches)
+    with torch.inference_mode(), run_to_run_stable():
+        a, b = full(i0, i2), lean(i0, i2)
+    pairs = [(f"{key}[{k}]", x, y) for key in ("outputs", "offsets",
+                                                "filters")
+             for k, (x, y) in enumerate(zip(a[key], b[key]))]
+    unequal = [name for name, x, y in pairs if not torch.equal(x, y)]
+    print(f"[vestigial] DAIN(init_unused=True) eval {W}x{H}: launches "
+          f"{launches}; its {len(pairs)} outputs against "
+          f"DAIN(init_unused=False) with the shared weights, K2 summed on "
+          f"the host and cuDNN deterministic: bit-equal "
+          f"{len(pairs) - len(unequal)} of {len(pairs)}")
+    if unequal:
+        raise AssertionError(f"init_unused changes the outputs: {unequal}")
+
+    with tempfile.TemporaryDirectory(prefix="vfidkr_vestigial_") as tmp:
+        path = Path(tmp) / "dain_reference.pth"
+        torch.save({k: v.cpu() for k, v in reference_state_dict(full).items()},
+                   path)
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    # PWC-Net's deconv2, which nothing calls, is the one reference key that
+    # no port model holds
+    for key in ("flownets.deconv2.weight", "flownets.deconv2.bias"):
+        del sd[key]
+    again = DAIN(init_unused=True)
+    again.load_state_dict(sd, strict=True)
+    same = all(torch.equal(v, sd[k]) for k, v in again.state_dict().items())
+    n_vest = sum(k.startswith(VESTIGIAL) for k in sd)
+    print(f"[vestigial] the reference-layout state dict ({len(sd)} tensors, "
+          f"{n_vest} of them {', '.join(VESTIGIAL)}'s) loads into DAIN() "
+          f"with strict=True, every tensor equal: {same}")
+    if not same or not n_vest:
+        raise AssertionError("the strict reload differs")
+    del full, lean, again
+
+    model = make_model().to(dev)
+    opt = make_optimizer(model, TrainConfig())
+    before = _vestigial_state(model)
+    batch = {k: v.to(dev) for k, v in
+             make_triplets(torch.Generator().manual_seed(2), 1).items()}
+    kernels.reset_launches()
+    m = train_step(model, opt, batch, TrainConfig())
+    torch.cuda.synchronize()
+    _check_launches("train_step", dict(kernels.LAUNCHES))
+    after = _vestigial_state(model)
+    moved = [k for k, v in before.items() if not torch.equal(v, after[k])]
+    no_grad = all(p.grad is None for c in VESTIGIAL
+                  for p in getattr(model, c).parameters())
+    print(f"[vestigial] one train step (loss {float(m['total']):.6f}): the "
+          f"{len(before)} vestigial tensors unchanged: {not moved}, no "
+          f"gradient: {no_grad}; the phase took "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    if moved or not no_grad or not math.isfinite(float(m["total"])):
+        raise AssertionError(f"the train step moved {moved}")
+    return launches
+
+
+def png_frames(g: torch.Generator) -> list:
+    """(label, PNG bytes, the RGB frame PIL's .convert("RGB") gives) of four
+    1280x720 frames of a smooth scene, built by hand (tests/torch_png.py),
+    each row filtered as PIL's encoder filters it: 16-bit RGB, 16-bit gray
+    (PIL clips it to 255), 8-bit RGB Adam7-interlaced and a 4-bit palette."""
+    scene = make_clip(g, 1, VIDEO_H, VIDEO_W)[0]
+    noise = torch.randint(0, 256, scene.shape, generator=g).numpy()
+    rgb16 = scene.astype(np.uint16) * 256 + noise.astype(np.uint16)
+    gray16 = scene[..., :1].astype(np.uint16) * 2
+    index = scene[..., 1:2] >> 4
+    palette = torch.randint(0, 256, (16, 3), generator=g).numpy()
+    grey = lambda x: np.repeat(x, 3, axis=-1).astype(np.uint8)
+    return [
+        ("16-bit RGB", torch_png.encode(rgb16, "pil", depth=16),
+         (rgb16 >> 8).astype(np.uint8)),
+        ("16-bit gray", torch_png.encode(gray16, "pil", depth=16),
+         grey(np.minimum(gray16, 255))),
+        ("Adam7 8-bit RGB", torch_png.encode(scene, "pil", interlace=True),
+         scene),
+        ("4-bit palette", torch_png.encode(index, "pil", depth=4,
+                                           palette=palette),
+         palette[index[..., 0]].astype(np.uint8))]
+
+
+def phase_png_depths(dev: torch.device, card: str) -> None:
+    """The PNG formats past 8-bit plain (no PIL on the card's machine):
+    four 1280x720 frames written by hand, read back by read_rgb and held
+    to the expected frames exactly, each read's host ms (median of 3); then
+    the depth-eval CLI (vfidkr_torch.apps.depth_eval.main) on the card on
+    one 16-bit Adam7 480x640 PNG with an .sdr.npz sample, resized to
+    256x320 by the numpy resize."""
+    g = torch.Generator().manual_seed(12)
+    with tempfile.TemporaryDirectory(prefix="vfidkr_png_") as tmp:
+        tmp = Path(tmp)
+        for label, data, want in png_frames(g):
+            path = tmp / "frame.png"
+            path.write_bytes(data)
+            got = read_rgb(path)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"png_depths {label}: read_rgb differs "
+                                     f"from the expected frame")
+            t = _median_s(lambda: read_rgb(path))
+            print(f"[png_depths] read_rgb of a {VIDEO_W}x{VIDEO_H} {label} "
+                  f"PNG ({len(data)} bytes): equal to the expected frame; "
+                  f"{t * 1000:.3f} ms a frame (median of 3, host clock) on "
+                  f"{card}'s host")
+        h, w = 480, 640
+        low = torch.rand(h // 16 + 1, w // 16 + 1, 3, generator=g).numpy()
+        img = (np.kron(low, np.ones((16, 16, 1)))[:h, :w] * 65535).astype(
+            np.uint16)
+        (tmp / "sample.png").write_bytes(torch_png.encode(
+            img, "pil", depth=16, interlace=True))
+        dh, dw = DEPTH_HW
+        pairs = {k: torch.randint(0, n, (DEPTH_SDR_PAIRS,),
+                                  generator=g).numpy()
+                 for k, n in (("xA", dw), ("yA", dh), ("xB", dw), ("yB", dh))}
+        pairs["gt"] = torch.randint(-1, 2, (DEPTH_SDR_PAIRS,),
+                                    generator=g).numpy()
+        np.savez(tmp / "sample.sdr.npz", **pairs)
+        t0 = time.perf_counter()
+        result, _, _ = _run_captured("png_depths", depth_eval.main, [
+            "--data-root", str(tmp), "--input-height", str(dh),
+            "--input-width", str(dw), "--device", str(dev)])
+        took = time.perf_counter() - t0
+    sdr = result.get("sdr", {})
+    print(f"[png_depths] the depth-eval CLI on a {w}x{h} 16-bit Adam7 PNG "
+          f"resized to {dw}x{dh}: {result}; {took:.2f} s (host clock, "
+          f"MegaDepth built and run once) on {card}")
+    if result.get("images") != 1 or sdr.get("pairs") != DEPTH_SDR_PAIRS \
+            or not 0 < sdr.get("total", 0) < 1:
+        raise AssertionError(f"the depth-eval CLI: {result}")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -2706,6 +3002,12 @@ def main() -> None:
                          "data_parallel": phase_data_parallel(dev)}
     print(f"[time] the parallel phases checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
+    card = card_label()
+    dormant_launches = {"dormant_ops": phase_dormant_ops(dev, card),
+                        "vestigial_eval": phase_vestigial(dev, card)}
+    phase_png_depths(dev, card)
+    print(f"[time] the dormant ops, vestigial and PNG phases checked and "
+          f"timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
     phase_bf16_stages(dev, eval_bf16, slowmo_bf16, i0, i2)
@@ -2724,7 +3026,7 @@ def main() -> None:
                 "slowmo_forward_bf16": slowmo_bf16_launches,
                 "middlebury_bf16": mb_launches,
                 "slowmo_train_step": smt_launches, **video_launches,
-                **parallel_launches}
+                **parallel_launches, **dormant_launches}
     print(f"[launches] {per_path}")
     rows = []
     for name, (src, rep) in KERNELS.items():

@@ -1,8 +1,11 @@
 """PNG streams built by hand, for the port's PNG reader: each row filtered
 by a chosen PNG filter (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), or by the
 filter PIL's encoder picks, so a frame can be encoded as PIL encodes it
-where PIL is absent (the card's machine).  Used by
-tests/test_torch_image_io.py and chip_smoke.py.
+where PIL is absent (the card's machine).  ``png_bytes`` writes 8-bit rows
+(its ``depth`` and ``interlace`` set the header alone, as a broken file's
+do); ``encode`` writes the samples at any bit depth (1, 2, 4, 8 or 16),
+plain or Adam7-interlaced.  Used by tests/test_torch_image_io.py,
+tests/test_torch_png_depths.py and chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -73,3 +76,49 @@ def png_bytes(img: np.ndarray, kinds, colour: int | None = None,
     for s, e in zip(cuts[:-1], cuts[1:]):
         out += chunk(b"IDAT", data[s:e])
     return out + chunk(b"IEND", b"")
+
+
+# Adam7's seven passes: first row, first column, row step, column step
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def pack_rows(img: np.ndarray, depth: int) -> np.ndarray:
+    """(H, W, C) samples -> (H, row bytes) uint8: big-endian at 16 bits,
+    packed high bits first below 8."""
+    h, w, c = img.shape
+    if depth == 16:
+        return img.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
+    if depth == 8:
+        return img.astype(np.uint8).reshape(h, w * c)
+    shifts = np.arange(depth - 1, -1, -1)
+    bits = (img.reshape(h, w * c, 1).astype(np.uint8) >> shifts) & 1
+    return np.packbits(bits.reshape(h, -1), axis=1)
+
+
+def encode(img: np.ndarray, kinds=0, depth: int = 8, interlace: bool = False,
+           palette=None, colour: int | None = None) -> bytes:
+    """A PNG stream of (H, W, C) samples ``img`` (values below 2**depth; C = 1
+    palette indices where ``palette`` is given) at bit ``depth``, plain or
+    Adam7-interlaced, each pass's rows filtered by ``kinds`` (one filter, or
+    "pil")."""
+    h, w, c = img.shape
+    if colour is None:
+        colour = 3 if palette is not None else {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    bpp = max(1, c * depth // 8)
+    raw = []
+    for r0, c0, dr, dc in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = img[r0::dr, c0::dc]
+        if sub.size == 0:
+            continue
+        rows = pack_rows(sub, depth).reshape(sub.shape[0], -1, bpp)
+        k = pil_kinds(rows) if isinstance(kinds, str) else np.full(
+            len(rows), kinds)
+        filt = candidates(rows)[k, np.arange(len(rows))]
+        raw.append(np.concatenate([k.astype(np.uint8)[:, None], filt], 1))
+    data = zlib.compress(b"".join(r.tobytes() for r in raw), 6)
+    out = SIGNATURE + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, colour, 0, 0, int(interlace)))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return out + chunk(b"IDAT", data) + chunk(b"IEND", b"")

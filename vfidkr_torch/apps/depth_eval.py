@@ -27,8 +27,10 @@ Orbax ``--checkpoint`` is not ported.  It runs on the card unless asked for
 the CPU (``--device cpu``).
 
 ``evaluate_depth`` is the in-memory core, which takes arrays; the CLI adds
-the loading, which needs ``h5py`` for the depth and PIL for the resize (as
-JAX's ``_resize``; PNG decoding needs no PIL).
+the loading.  The resize is PIL's, computed in numpy (``_resize``), and PNG
+decoding needs no PIL, so a ``.png`` image with an ``.sdr.npz`` sample runs
+where PIL is absent (the card's machine); an ``.h5`` depth needs ``h5py``
+and a ``.jpg`` image PIL.
 
 Usage:
   python -m vfidkr_torch.apps.depth_eval --data-root /data/md_eval \\
@@ -55,17 +57,65 @@ from vfidkr_torch.utils.image_io import read_rgb
 SDR_KEYS = ("xA", "yA", "xB", "yB", "gt")
 
 
+def _bilinear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64: PIL's BILINEAR coefficients for one axis
+    (``precompute_coeffs`` of its ``Resample.c``): a triangle of support 1,
+    widened by the factor when shrinking, each output's taps normalised to
+    sum to 1."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ss = 1.0 / filterscale
+    out = np.zeros((n_out, n_in))
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        k = np.maximum(1.0 - np.abs((np.arange(lo, hi) - center + 0.5) * ss),
+                       0.0)
+        total = sum(k.tolist())           # in order, as PIL sums
+        out[xx, lo:hi] = k / total if total != 0.0 else k
+    return out
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """PIL's NEAREST source index for each output (``ImagingScaleAffine``):
+    the position starts at half a step and adds the step, in float64, and
+    is truncated; -1 where it leaves the source."""
+    step = n_in / n_out
+    pos = np.cumsum(np.r_[step * 0.5, np.full(n_out - 1, step)])
+    idx = pos.astype(np.int64)
+    return np.where(idx < n_in, idx, -1)
+
+
 def _resize(img: np.ndarray, hw, nearest: bool = False) -> np.ndarray:
-    """PIL's bilinear or nearest resize of each channel, as JAX's
-    ``_resize`` (the reference uses skimage)."""
-    from PIL import Image
+    """PIL's mode-F BILINEAR or NEAREST resize of each channel of a float
+    (H, W) or (H, W, C) image to ``hw``, as JAX's ``_resize`` calls PIL (the
+    reference uses skimage); numpy only, since the card's machine has no
+    PIL.  Bilinear runs the horizontal pass, rounds to float32 and then the
+    vertical pass, as PIL does, each in float64; it equals PIL's to a
+    float32 rounding of the sums, whose order differs."""
     h, w = hw
-    mode = Image.NEAREST if nearest else Image.BILINEAR
-    if img.ndim == 2:
-        return np.asarray(Image.fromarray(img).resize((w, h), mode))
-    chans = [np.asarray(Image.fromarray(img[..., c]).resize((w, h), mode))
-             for c in range(img.shape[-1])]
-    return np.stack(chans, axis=-1)
+    img = np.asarray(img, np.float32)
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    if nearest:
+        iy, ix = _nearest_index(img.shape[0], h), _nearest_index(
+            img.shape[1], w)
+        out = img[np.maximum(iy, 0)][:, np.maximum(ix, 0)]
+        inside = (iy >= 0)[:, None] & (ix >= 0)[None, :]
+        return np.where(inside.reshape(inside.shape + (1,) * (img.ndim - 2)),
+                        out, np.float32(0))
+    out = img
+    if img.shape[1] != w:
+        m = _bilinear_weights(img.shape[1], w)
+        out = np.einsum("yx...,ux->yu...", out.astype(np.float64), m).astype(
+            np.float32)
+    if img.shape[0] != h:
+        m = _bilinear_weights(img.shape[0], h)
+        out = np.einsum("y...,vy->v...", out.astype(np.float64), m).astype(
+            np.float32)
+    return out
 
 
 def load_image(img_path: str, hw) -> np.ndarray:

@@ -6,17 +6,21 @@ straight onto ``model.state_dict()``.  This module keeps its own numpy copy
 of both halves:
 
 * the key map, reference state_dict -> flax tree (``convert_dain_state_dict``,
-  the counterpart of ``vfidkr_tpu/convert/torch_loader.py:37-215``), for the
-  networks the port builds: PWC-Net, MonoNet5 and its heads, S2DF, the
-  rectifier and MegaDepth (its BN running statistics in ``batch_stats``);
+  the counterpart of ``vfidkr_tpu/convert/torch_loader.py:37-215``), for
+  every network the port builds: PWC-Net, MonoNet5 and its heads, S2DF, the
+  rectifier, MegaDepth (its BN running statistics in ``batch_stats``) and
+  DAIN's vestigial OccNet and DeconvField;
 * its inverse (``invert_dain_state_dict``, the counterpart of
   ``vfidkr_tpu/convert/inverse.py:30-102``), derived from the key map: the
   map runs on index arrays tagged with their reference key, so each flax
   leaf carries where every one of its elements came from, and inverting a
   leaf is a scatter.
 
-The vestigial ``OccNet`` and ``DeconvField``, which the port does not build,
-are left out of the key map.
+Each section is optional on both sides, as the JAX converter's ``has(...)``
+makes it.  ``load_jax_variables`` leaves DAIN's vestigial children
+(``initOcclusion``, ``initDeconv_field``, ``ctxNet``; ``models.dain``) at
+their init where the flax tree lacks them, as a ``DAIN(init_unused=False)``
+tree of the JAX package does; any other key without a counterpart raises.
 """
 
 from __future__ import annotations
@@ -134,13 +138,36 @@ def convert_megadepth(sd: Dict[str, np.ndarray]) -> Tuple[dict, dict]:
     return params, stats
 
 
+# OccNet's and DeconvField's flattened reference indices
+# (networks/DAIN.py:474-527)
+_OCCNET_IDX = [(0, "b1_conv1"), (2, "b1_conv2"), (5, "b2_conv1"),
+               (7, "b2_conv2"), (10, "b3_conv1"), (12, "b3_conv2"),
+               (15, "b4_conv1"), (17, "b4_conv2"), (20, "b5_conv1"),
+               (22, "b5_conv2"), (25, "b6_conv1"), (27, "b6_conv2"),
+               (30, "up1_conv"), (32, "b7_conv1"), (34, "b7_conv2"),
+               (37, "up2_conv"), (39, "b8_conv1"), (41, "b8_conv2"),
+               (44, "up3_conv"), (46, "b9_conv1"), (48, "b9_conv2"),
+               (51, "up4_conv"), (54, "out_conv")]
+
+
+def convert_occnet(sd: Dict[str, np.ndarray]) -> dict:
+    return {name: _conv_entry(sd, str(idx)) for idx, name in _OCCNET_IDX}
+
+
+def convert_deconv_field(sd: Dict[str, np.ndarray]) -> dict:
+    return {"conv1": _conv_entry(sd, "0"), "conv2": _conv_entry(sd, "2"),
+            "conv3": _conv_entry(sd, "4")}
+
+
 # reference child name -> (flax name, key map)
 _SECTIONS = [("initScaleNets_filter", "filter_net", convert_mononet_trunk),
              ("initScaleNets_filter1", "filter_head1", convert_branch_head),
              ("initScaleNets_filter2", "filter_head2", convert_branch_head),
              ("flownets", "flownets", convert_pwcnet),
              ("rectifyNet", "rectify_net", convert_resblock),
-             ("ctxNet", "ctx_net", convert_s2df)]
+             ("ctxNet", "ctx_net", convert_s2df),
+             ("initOcclusion", "occ_net", convert_occnet),
+             ("initDeconv_field", "deconv_field", convert_deconv_field)]
 
 
 def convert_dain_state_dict(sd: Dict[str, np.ndarray]) -> dict:
@@ -238,13 +265,16 @@ def load_jax_variables(model: nn.Module, variables: dict) -> list[str]:
     ``jax.device_get(DAIN().init(...))``) into ``model`` and return the
     loaded keys.  Raises if any of the model's keys has no counterpart,
     except the BN ``num_batches_tracked`` counters, which keep the model's
-    own values."""
+    own values, and the model's vestigial children (``model.vestigial``),
+    which keep their init."""
     state = model.state_dict()
     template = {k: v.detach().cpu().numpy()
                 for k, v in reference_state_dict(model).items()}
     sd, missing = invert_dain_state_dict(variables, template)
+    optional = tuple(f"{child}." for child in getattr(model, "vestigial", ()))
     missing = [k for k in missing if k not in _PWC_DECONV2
-               and not k.endswith(_NO_COUNTERPART)]
+               and not k.endswith(_NO_COUNTERPART)
+               and not k.startswith(optional)]
     if missing:
         raise KeyError(f"no counterpart in the JAX variables for {missing}")
     loaded = sorted(k for k in sd if k not in _PWC_DECONV2)

@@ -20,6 +20,17 @@ the reference checkpoint's names (``initScaleNets_filter``,
 ``initScaleNets_filter1/2``, ``flownets``, ``rectifyNet``; DAIN_slowmotion
 adds ``ctxNet`` and ``depthNet``).
 
+``DAIN(init_unused=True)``, the default as in the JAX package
+(``dain.py:52,106-117``), also builds the reference's vestigial children
+``initOcclusion`` (OccNet), ``initDeconv_field`` (DeconvField) and
+``ctxNet`` (S2DF), which its forward never calls (``DAIN.py:44-50``): every
+reference DAIN checkpoint holds them, so one loads with ``strict=True``.
+They are built after every other child, so at a given generator the other
+weights, and the outputs, are those of ``init_unused=False`` bit for bit.
+No optimizer group trains them (``training.train_state.FROZEN``), and a
+checkpoint without them still loads (``convert.load_jax_variables``,
+``training.checkpoint.restore_full_state``).
+
 ``compute_dtype="bfloat16"`` selects the fast-eval lane of the JAX package
 (``dain.py:57-65, 134-170, 190-194, 248-263, 322-324``): MonoNet5 and the
 heads, the rectifier (its residual trunk through the kernel
@@ -39,7 +50,8 @@ from torch import nn
 from vfidkr_torch.models.layers import lane_dtype, upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
-from vfidkr_torch.models.mononet import BranchHead, MonoNet5
+from vfidkr_torch.models.mononet import (BranchHead, DeconvField, MonoNet5,
+                                         OccNet)
 from vfidkr_torch.models.pwcnet import PWCDCNet
 from vfidkr_torch.models.resblock import MultipleBasicBlock
 from vfidkr_torch.models.s2df import S2DF
@@ -61,9 +73,13 @@ _BF16_WHY = ("the bf16 lane's rectifier trunk (the kernel fused_resblocks) "
              "has no backward, and no training app runs the lane")
 
 
+# DAIN's children that its forward never calls (see the module docstring)
+VESTIGIAL = ("initOcclusion", "initDeconv_field", "ctxNet")
+
+
 class DAIN(nn.Module):
     def __init__(self, generator: torch.Generator | None = None,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", init_unused: bool = True):
         super().__init__()
         g, dt = generator, lane_dtype(compute_dtype)
         self.compute_dtype = dt
@@ -73,6 +89,12 @@ class DAIN(nn.Module):
         self.flownets = PWCDCNet(generator=g)
         self.rectifyNet = MultipleBasicBlock(45, 128, generator=g,
                                              compute_dtype=dt)
+        # the children a checkpoint may lack (training.checkpoint)
+        self.vestigial = VESTIGIAL if init_unused else ()
+        if init_unused:
+            self.initOcclusion = OccNet(generator=g)
+            self.initDeconv_field = DeconvField(32, generator=g)
+            self.ctxNet = S2DF(generator=g)
         if dt != torch.float32:
             self.train(False)
 
@@ -147,6 +169,7 @@ class DAINSlowMotion(nn.Module):
         super().__init__()
         g, dt = generator, lane_dtype(compute_dtype)
         self.compute_dtype = dt
+        self.vestigial = ()             # its ctxNet is live
         self.timestep = timestep
         self.num_frames = int(round(1.0 / timestep)) - 1
         self.initScaleNets_filter = MonoNet5(generator=g, compute_dtype=dt)

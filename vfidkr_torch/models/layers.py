@@ -2,8 +2,9 @@
 
 Counterpart of ``vfidkr_tpu/models/layers.py``: the three torch-matching
 inits (:46-69), flax's default ``nn.Conv`` init (lecun normal, which
-MegaDepth uses), ``leaky_relu``, ``upsample_bilinear``, the 2x2 pools and
-the nearest upsample (:203-213, 289-292).  Convolutions are ``Conv2d``
+MegaDepth uses), ``leaky_relu``, ``upsample_bilinear``, the 2x2 pools, the
+align-corners upsample of the vestigial OccNet, the nearest upsample and
+the replication pad (:203-213, 265-298).  Convolutions are ``Conv2d``
 (below) and ``nn.ConvTranspose2d``, created uninitialised and then filled
 from a ``torch.Generator`` by the named init; biases start at 0.
 
@@ -120,6 +121,20 @@ def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2)
 
 
+def upsample_bilinear_align_corners(x: torch.Tensor,
+                                    factor: int) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=factor, mode="bilinear",
+    align_corners=True)``, the vestigial OccNet's upsample."""
+    return F.interpolate(x, scale_factor=factor, mode="bilinear",
+                         align_corners=True)
+
+
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     """``nn.UpsamplingNearest2d(scale_factor=factor)``."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def replication_pad(x: torch.Tensor,
+                    pads: tuple[int, int, int, int]) -> torch.Tensor:
+    """``nn.ReplicationPad2d((left, right, top, bottom))``."""
+    return F.pad(x, pads, mode="replicate")

@@ -43,14 +43,23 @@ then to the block.  The tap
 clamp is the block's: the halo replicates the frame's edge rows.  Both
 kernels and the plain version take ``row0, hg``; nothing takes a gradient
 inside a frame.
+
+``filter_interpolate_deformable`` and
+``filter_interpolate_nofilter_deformable`` are the reference's dormant deformable-tap variants (no model calls them).
+They are plain PyTorch on every device, not a fallback: the JAX package
+computes them with XLA gathers, and there is no TPU kernel to port.  They
+share the landing and window above (``_window``) and raise inside a
+row-sharded frame, which no driver opens around them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vfidkr_torch import kernels
-from vfidkr_torch.parallel.spatial import no_grad_in_frame, row_frame
+from vfidkr_torch.parallel.spatial import (current_spatial_frame,
+                                           no_grad_in_frame, row_frame)
 
 FILTER_SIZE = 4
 MAX_NARROW_C = 8       # widest tensor that filter_interpolate_fwd takes
@@ -63,24 +72,20 @@ def _check_shapes(image, flow, filt):
     if tuple(flow.shape) != (n, 2, h, w):
         raise ValueError(f"flow must be {(n, 2, h, w)}, got {tuple(flow.shape)}")
     fs2 = FILTER_SIZE * FILTER_SIZE
-    if tuple(filt.shape) != (n, fs2, h, w):
+    if filt is not None and tuple(filt.shape) != (n, fs2, h, w):
         raise ValueError(f"filt must be {(n, fs2, h, w)}, got {tuple(filt.shape)}")
     if image.numel() == 0:
         raise ValueError("empty image")
 
 
-def filter_interpolate_plain(image: torch.Tensor, flow: torch.Tensor,
-                             filt: torch.Tensor, row0: int = 0,
-                             hg: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version: 16 clamped tap gathers, weighted and summed in
-    tap order.  ``row0, hg``: the block's place in a row-sharded frame
-    (default: the whole frame)."""
-    _check_shapes(image, flow, filt)
-    n, c, h, w = image.shape
+def _window(flow, h, w, row0=0, hg=None):
+    """The landing and its window, shared by the plain and the deformable
+    versions: (valid, x2, y2, ix, iy, alpha, beta), the window's top-left
+    tap at ``(iy - 1, ix - 1)`` in the block's rows."""
     hg = h if hg is None else hg
     fx, fy = flow[:, 0], flow[:, 1]
-    xx = torch.arange(w, dtype=torch.float32, device=image.device)
-    yy = torch.arange(h, dtype=torch.float32, device=image.device).view(h, 1)
+    xx = torch.arange(w, dtype=torch.float32, device=flow.device)
+    yy = torch.arange(h, dtype=torch.float32, device=flow.device).view(h, 1)
     x2 = xx + fx
     y2 = (yy + row0) + fy               # the frame's row (see _landing)
     valid = ((x2 >= 0) & (y2 >= 0) & (x2 <= w - 1) & (y2 <= hg - 1)
@@ -93,10 +98,19 @@ def filter_interpolate_plain(image: torch.Tensor, flow: torch.Tensor,
     y2s = y2.clamp(0, hg - 1).clamp(row0, row0 + h - 1)
     x0 = torch.floor(x2s)
     y0 = torch.floor(y2s)
-    alpha = x2s - x0
-    beta = y2s - y0
-    ix = x0.long()
-    iy = y0.long() - row0
+    return (valid, x2, y2, x0.long(), y0.long() - row0, x2s - x0,
+            y2s - y0)
+
+
+def filter_interpolate_plain(image: torch.Tensor, flow: torch.Tensor,
+                             filt: torch.Tensor, row0: int = 0,
+                             hg: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version: 16 clamped tap gathers, weighted and summed in
+    tap order.  ``row0, hg``: the block's place in a row-sharded frame
+    (default: the whole frame)."""
+    _check_shapes(image, flow, filt)
+    n, c, h, w = image.shape
+    valid, _, _, ix, iy, alpha, beta = _window(flow, h, w, row0, hg)
 
     flat = image.reshape(n, c, h * w)
     out = torch.zeros_like(image)
@@ -186,3 +200,120 @@ def filter_interpolate(image: torch.Tensor, flow: torch.Tensor,
         return filter_interpolate_plain(image, flow, filt,
                                         *row_frame(image.shape[2]))
     return _FilterInterpolateKernel.apply(image, flow, filt)
+
+
+# ---------------------------------------------------------------------------
+# the deformable-tap variants
+# ---------------------------------------------------------------------------
+
+QUADRANTS = ("static", "deformed")
+
+
+def _check_offsets(image, offsets):
+    n, _, h, w = image.shape
+    want = (n, 2 * FILTER_SIZE * FILTER_SIZE, h, w)
+    if tuple(offsets.shape) != want:
+        raise ValueError(f"offsets must be {want}, got {tuple(offsets.shape)}")
+
+
+def _deformable(image, flow, filt, offsets, quadrant):
+    """The three deformable variants' shared math, JAX's
+    ``_deformable_core`` (``vfidkr_tpu/ops/filter_interpolation.py:520-596``)
+    on (N,C,H,W); ``filt`` None for the one without the filter."""
+    if quadrant not in QUADRANTS:
+        raise ValueError(f"quadrant must be one of {QUADRANTS}, got "
+                         f"{quadrant!r}")
+    _check_offsets(image, offsets)
+    n, c, h, w = image.shape
+    fs = FILTER_SIZE
+    if current_spatial_frame() is not None:
+        raise RuntimeError("the deformable filter interpolation is not "
+                           "row-sharded: call it outside a spatial frame")
+    valid, x2, y2, ix, iy, alpha, beta = _window(flow, h, w)
+
+    # each tap's deformed position: the clamped tap plus its offset, the
+    # first 16 offset channels Y and the next 16 X, both (N, dj, di, H, W)
+    taps = torch.arange(fs, device=image.device).view(1, fs, 1, 1)
+    tap_y = (iy.unsqueeze(1) - 1 + taps).clamp(0, h - 1).unsqueeze(2)
+    tap_x = (ix.unsqueeze(1) - 1 + taps).clamp(0, w - 1).unsqueeze(1)
+    off = offsets.reshape(n, 2, fs, fs, h, w)
+    frac_y = tap_y.float() + off[:, 0]
+    frac_x = tap_x.float() + off[:, 1]
+
+    # C's int() truncates toward zero; the corners carry no gradient and
+    # are read clamped to the frame (the reference reads them unclamped)
+    top = torch.trunc(frac_y).detach()
+    left = torch.trunc(frac_x).detach()
+    phi_y = (frac_y - top).unsqueeze(1)
+    phi_x = (frac_x - left).unsqueeze(1)
+    ys = top.long().clamp(-1, h - 1) + 1
+    xs = left.long().clamp(-1, w - 1) + 1
+    pad = F.pad(image, (1, 1, 1, 1), mode="replicate")
+    flat = pad.reshape(n, c, -1)
+
+    def corner(dy, dx):
+        lin = ((ys + dy) * (w + 2) + xs + dx).reshape(n, 1, -1)
+        return torch.gather(flat, 2, lin.expand(n, c, lin.shape[2])
+                            ).reshape(n, c, fs, fs, h, w)
+
+    bi = ((1 - phi_x) * (1 - phi_y) * corner(0, 0)
+          + phi_x * (1 - phi_y) * corner(0, 1)
+          + (1 - phi_x) * phi_y * corner(1, 0)
+          + phi_x * phi_y * corner(1, 1))
+    if filt is not None:
+        bi = bi * filt.reshape(n, 1, fs, fs, h, w)
+
+    a = alpha.view(n, 1, 1, h, w)
+    b = beta.view(n, 1, 1, h, w)
+    if quadrant == "static":
+        # by tap position, as the _ori op's separable weights
+        wx = torch.where(taps.view(1, 1, fs, 1, 1) >= fs // 2, a, 1 - a)
+        wy = torch.where(taps.view(1, fs, 1, 1, 1) >= fs // 2, b, 1 - b)
+        qw = wy * wx
+    else:
+        # by the deformed position against the landing point
+        qx = torch.where(frac_x <= x2.view(n, 1, 1, h, w), 1 - a, a)
+        qy = torch.where(frac_y <= y2.view(n, 1, 1, h, w), 1 - b, b)
+        qw = qx * qy
+    out = (qw.unsqueeze(1) * bi).sum((2, 3))
+    return torch.where(valid.unsqueeze(1), out, image.detach())
+
+
+def filter_interpolate_deformable(image: torch.Tensor, flow: torch.Tensor,
+                                  filt: torch.Tensor, offsets: torch.Tensor,
+                                  quadrant: str = "static") -> torch.Tensor:
+    """The reference's compiled but dormant deformable-tap variants of the
+    filter interpolation, JAX's ``filter_interpolate_deformable``
+    (``vfidkr_tpu/ops/filter_interpolation.py:599-634``).
+
+    image (N,C,H,W), flow (N,2,H,W), filt (N,16,H,W), offsets (N,32,H,W):
+    the first 16 channels each tap's Y offset and the next 16 its X offset
+    (``filterinterpolation_cuda_kernel.cu:100-101``).  Each 4x4 tap reads a
+    bilinear sample at its clamped tap position plus its offset; the corners
+    are ``trunc`` of that position (toward zero), read clamped to the frame;
+    the filter index is the unclamped tap.  ``quadrant="static"``
+    (``FilterInterpolationLayer_gpu_forward``, :29-255) weights each tap by
+    its tap position, as the ``_ori`` op; ``"deformed"``
+    (``_kernelfunc_deforconv``, :1353-1498) by its deformed position against
+    the landing point (``frac_x <= x2``, ``frac_y <= y2``).  An invalid pixel
+    copies the image, with no gradient; autograd gives the gradients of the
+    image, flow, filter and offsets.  A landing on the frame's edge takes the
+    full flow gradient, as ``filter_interpolate``'s does.
+
+    Plain PyTorch on every device: the JAX package computes it with XLA
+    gathers, not a Pallas kernel, so it has no CUDA kernel here."""
+    _check_shapes(image, flow, filt)
+    return _deformable(image, flow, filt, offsets, quadrant)
+
+
+def filter_interpolate_nofilter_deformable(image: torch.Tensor,
+                                           flow: torch.Tensor,
+                                           offsets: torch.Tensor
+                                           ) -> torch.Tensor:
+    """``..._kernelfunc_nofilterwithdeforconv``
+    (``filterinterpolation_cuda_kernel.cu:2070-2194``, JAX's
+    ``filter_interpolate_nofilter_deformable``): the ``"deformed"``
+    variant without the per-tap filter.  Plain PyTorch on every device, as
+    ``filter_interpolate_deformable``."""
+    _check_shapes(image, flow, None)
+    return _deformable(image, flow, None, offsets, "deformed")

@@ -62,6 +62,10 @@ and the average (and the hole fill, which takes no gradient), as JAX's
 ``custom_vjp`` covers ``_depth_flow_project_core``; its backward is
 ``depth_flow_project_bwd`` on the card and ``depth_flow_project_bwd_plain``
 on the CPU.  The bare weighted ``scatter4`` records no gradient.
+
+``min_depth_flow_project``, the reference's z-buffer projection (which no
+model calls), is plain PyTorch on every device, not a fallback: the JAX
+package computes it with XLA scatter-maxes and its plain ``fill_holes``.
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ from __future__ import annotations
 import torch
 
 from vfidkr_torch import kernels
-from vfidkr_torch.parallel.spatial import (global_row_frame, no_grad_in_frame,
+from vfidkr_torch.parallel.spatial import (current_spatial_frame,
+                                           global_row_frame, no_grad_in_frame,
                                            row_frame)
 
 
@@ -476,3 +481,48 @@ def depth_flow_project(flow: torch.Tensor, depth_inv: torch.Tensor,
         depth_inv = depth_inv.reshape(n, h, w)
     no_grad_in_frame("depth_flow_project", flow, depth_inv)
     return _DepthFlowProject.apply(flow, depth_inv.contiguous(), hole_fill)
+
+
+def min_depth_flow_project(flow: torch.Tensor, depth_inv: torch.Tensor,
+                           hole_fill: bool = False) -> torch.Tensor:
+    """Z-buffer flow projection, JAX's ``min_depth_flow_project``
+    (``vfidkr_tpu/ops/flow_projection.py:602-642``; the reference's
+    MinDepthFlowProjection, which no model calls): each source writes only
+    to the top-left cell of its landing, a cell keeps the largest
+    ``depth_inv · valid`` among its sources, ties going to the highest
+    linear source index, and takes that source's ``-flow``; a cell with no
+    winner is 0.  The hole fill, with ``hole_fill``, counts a cell filled
+    where its maximum is above 0.
+
+    flow (N,2,H,W), depth_inv (N,H,W) or (N,1,H,W) -> (N,2,H,W).  The
+    gradient reaches the winners' flow (and, through the fill, the filled
+    cells'), never the depth.  Plain PyTorch on every device, not a
+    fallback: the JAX package computes it with XLA scatter-maxes, and
+    ``scatter_reduce("amax")`` gives the same cells in any order, so the
+    card's result equals the CPU's bit for bit.  It raises inside a
+    row-sharded frame, which no driver opens around it."""
+    _check_flow(flow)
+    n, _, h, w = flow.shape
+    depth_inv = depth_inv.reshape(n, h, w)
+    if current_spatial_frame() is not None:
+        raise RuntimeError("min_depth_flow_project is not row-sharded: call "
+                           "it outside a spatial frame")
+    fx, fy, valid, ix_l, _, iy_t, _ = _landing(flow, 0, h)
+    dev = flow.device
+    d = (depth_inv.detach() * valid.float()).reshape(-1)
+    base = (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1)
+    cell = (base + iy_t * w + ix_l).reshape(-1)
+    dmax = torch.zeros_like(d).scatter_reduce(0, cell, d, "amax")
+    src = torch.arange(n * h * w, device=dev)
+    best = (d > 0) & (d >= dmax[cell])
+    winner = torch.full_like(src, -1).scatter_reduce(
+        0, cell, torch.where(best, src, -1), "amax")
+    winner = winner.view(n, 1, h * w)
+    has = winner >= 0
+    local = torch.where(has, winner - base.view(n, 1, 1), 0)
+    neg = torch.stack([-fx, -fy], 1).reshape(n, 2, h * w)
+    out = torch.where(has, torch.gather(neg, 2, local.expand(n, 2, h * w)),
+                      0.0).reshape(n, 2, h, w)
+    if hole_fill:
+        out = fill_holes(dmax.view(n, h, w), out)
+    return out

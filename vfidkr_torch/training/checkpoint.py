@@ -3,11 +3,11 @@
 
 ``filtered_partial_load`` keeps the reference's partial restore: only the
 checkpoint entries whose key the model has are loaded, so checkpoints of
-ablation variants (extra OccNet or DeconvField weights, PWC-Net's unused
-``deconv2``) load into the port.  ``CheckpointManager`` writes
-``<dir>/epoch<k>.pth``, deleting the previous epoch's, and ``<dir>/best.pth``;
-each holds the full training state: model, Adamax state, plateau, epoch
-and the best validation loss so far.
+ablation variants (PWC-Net's unused ``deconv2``, or DAIN's vestigial
+children where the model is built without them) load into the port.
+``CheckpointManager`` writes ``<dir>/epoch<k>.pth``, deleting the previous
+epoch's, and ``<dir>/best.pth``; each holds the full training state:
+model, Adamax state, plateau, epoch and the best validation loss so far.
 """
 
 from __future__ import annotations
@@ -67,8 +67,15 @@ def full_state(model: nn.Module, optimizer: torch.optim.Optimizer,
 def restore_full_state(state: dict, model: nn.Module,
                        optimizer: torch.optim.Optimizer) -> PlateauState:
     """Load a ``full_state`` dict into ``model`` and ``optimizer``; returns
-    its plateau state."""
-    model.load_state_dict(state["model"])
+    its plateau state.  A checkpoint without the model's vestigial children
+    (``model.vestigial``; written before DAIN built them) leaves them at
+    their init; any other missing or unexpected key raises."""
+    vestigial = tuple(f"{c}." for c in getattr(model, "vestigial", ()))
+    missing, unexpected = model.load_state_dict(state["model"], strict=False)
+    missing = [k for k in missing if not k.startswith(vestigial)]
+    if missing or unexpected:
+        raise RuntimeError(f"the checkpoint does not fit the model: missing "
+                           f"keys {missing}, unexpected keys {unexpected}")
     optimizer.load_state_dict(state["optimizer"])
     return PlateauState(**state["plateau"])
 

@@ -33,6 +33,12 @@ def tv_loss(x: torch.Tensor, epsilon: float) -> torch.Tensor:
     return torch.mean(torch.sqrt(d1 ** 2 + d2 ** 2 + epsilon * epsilon))
 
 
+def smooth_loss(x: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """The reference's smoothness loss (``loss_function.py:42-49``): the
+    total variation, as JAX's ``smooth_loss``."""
+    return tv_loss(x, epsilon)
+
+
 def gra_adap_tv_loss(flow: torch.Tensor, image: torch.Tensor,
                      epsilon: float) -> torch.Tensor:
     """TV of the projected flow weighted by exp(-|image gradient|)."""

@@ -3,10 +3,10 @@
 
 The reference trains with Adamax in parameter groups: the three
 kernel-prediction nets at ``filter_lr_coe * lr``, PWC-Net at
-``flow_lr_coe * lr`` and the rectifier at ``rectify_lr``.  Its vestigial
-OccNet and DeconvField join no optimizer, and the port does not build them.
-DAIN_slowmotion's context and depth nets join none either: they are
-``FROZEN``, JAX's ``stop_gradient`` plus ``set_to_zero``
+``flow_lr_coe * lr`` and the rectifier at ``rectify_lr``.  DAIN's vestigial
+OccNet, DeconvField and context net join no optimizer, nor do
+DAIN_slowmotion's context and depth nets: they are ``FROZEN``, JAX's
+``stop_gradient`` plus ``set_to_zero``
 (``vfidkr_tpu/training/train_state.py:48-56,78,170-175``).  Every other
 parameter belongs to one of the three groups.  The plateau schedule's
 ``scale`` multiplies every group's rate, as ReduceLROnPlateau reduces every
@@ -44,8 +44,9 @@ GROUPS = {
     "flow": ("flownets",),
     "rectify": ("rectifyNet",),
 }
-# DAIN_slowmotion children that no optimizer trains and autograd skips
-FROZEN = ("ctxNet", "depthNet")
+# children that no optimizer trains and autograd skips: DAIN_slowmotion's
+# context and depth nets, and DAIN's vestigial ones (models.dain.VESTIGIAL)
+FROZEN = ("ctxNet", "depthNet", "initOcclusion", "initDeconv_field")
 
 
 def make_optimizer(model: nn.Module, config: TrainConfig) -> torch.optim.Adamax:

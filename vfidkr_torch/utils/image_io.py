@@ -1,18 +1,27 @@
-"""Frame files: 8-bit PNG on the standard library's ``zlib`` and numpy, and
-JPEG through PIL.
+"""Frame files: PNG on the standard library's ``zlib`` and numpy, and JPEG
+through PIL.
 
 The card's machine has no PIL, so every PNG the port reads or writes goes
 through this module and never through PIL: one code path for PNG.
 
-* ``read_png(path)`` -> (H, W, C) uint8: bit depth 8, colour types 0, 2, 3,
-  4 and 6 (gray, RGB, palette through ``PLTE`` expanded to RGB, gray+alpha,
-  RGBA), all five row filters, the ``IDAT`` chunks concatenated, each
-  chunk's CRC checked.  Anything else (16-bit samples, Adam7 interlace, a
-  truncated stream) raises a ``ValueError`` that names the file.
-* ``read_rgb(path)`` -> (H, W, 3) uint8, as PIL's ``.convert("RGB")`` gives
-  it: gray repeated, alpha dropped.  A path that does not end in ``.png``
-  (``.jpg``, ``.jpeg``) is decoded by PIL; where PIL is absent it raises an
-  ``ImportError`` that names the file.
+* ``read_png(path)`` -> (H, W, C) samples: every PNG format, as PIL opens
+  them: colour types 0, 2, 3, 4 and 6 (gray, RGB, palette through ``PLTE``
+  expanded to RGB, gray+alpha, RGBA) at each bit depth the format allows
+  (1, 2, 4 and 8 for gray and palette, 16 for all but palette), plain or
+  Adam7-interlaced, all five row filters, the ``IDAT`` chunks
+  concatenated, each chunk's CRC checked.  Samples come as uint8 at bit
+  depth 8 and below (gray at 1, 2 or 4 bits as stored, 0 to 2**depth - 1)
+  and uint16 at 16.  A truncated stream, a bad CRC, a stream shorter or
+  longer than its header says, a palette index past ``PLTE`` or a depth the
+  colour type does not allow raises a ``ValueError`` that names the file.
+  ``tRNS`` is ignored, as ``.convert("RGB")`` ignores it.
+* ``read_rgb(path)`` -> (H, W, 3) uint8, as PIL 12's ``.convert("RGB")``
+  gives it: gray repeated, alpha dropped; gray at 1, 2 or 4 bits scaled to
+  0-255 (x255, x85, x17); 16-bit gray clipped to 255 (PIL opens it as
+  ``I;16``, whose conversion clips: 256 and 65535 both give 255), and every
+  other 16-bit type's samples by their high byte.  A path that does not end
+  in ``.png`` (``.jpg``, ``.jpeg``) is decoded by PIL; where PIL is absent
+  it raises an ``ImportError`` that names the file.
 * ``write_png(path, frame)``: RGB (H, W, 3) or gray (H, W) / (H, W, 1)
   uint8, non-interlaced, the Up filter on every row (one numpy subtraction
   for the whole frame; on smooth frames it compresses better than None),
@@ -28,7 +37,11 @@ at once, H + W - 1 steps each vectorised over the rows and channels.  A
 step is nine numpy calls: each filter's predictor is ``c + table[kind, a -
 c, b - c]`` for the left, upper and upper-left pixels a, b, c, one lookup in
 a table of the four predictors (Sub, Up, Average, Paeth); a None row is
-first rewritten as the Sub row that decodes to the same bytes.
+first rewritten as the Sub row that decodes to the same bytes.  The filters
+work on bytes, a pixel's bytes apart (one byte below 8 bits a pixel), so
+16-bit and packed low-depth rows unfilter as 8-bit ones do; then the bytes
+become samples.  An Adam7 file is seven such images, each unfiltered alone
+and scattered to its rows and columns.
 """
 
 from __future__ import annotations
@@ -46,8 +59,14 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # zlib level of write_png: the fastest, since the video driver encodes on
 # the host beside the forward (PERF.md has the time of a 1280x720 frame)
 ZLIB_LEVEL = 1
-# samples a pixel of each colour type (the palette's index is one)
+# samples a pixel of each colour type (the palette's index is one), and the
+# bit depths a sample of each may have (PNG spec, table 11.1)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's seven passes: first row, first column, row step, column step
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 _UP = 2
 
 
@@ -168,9 +187,25 @@ def _unfilter_diagonals(ftype: np.ndarray, filt: np.ndarray, bpp: int
     return _skewed(t, h, w, bpp, 1).astype(np.uint8).reshape(h, w * bpp)
 
 
-def read_png(path) -> np.ndarray:
-    """An 8-bit PNG file -> (H, W, C) uint8: C = 1 gray, 2 gray+alpha,
-    3 RGB (and palette, expanded), 4 RGBA."""
+def _pass_samples(rows: np.ndarray, pw: int, channels: int, depth: int
+                  ) -> np.ndarray:
+    """Unfiltered rows (ph, rowbytes) uint8 -> (ph, pw, channels) samples:
+    uint16 at depth 16 (big-endian), else uint8 (0 to 2**depth - 1)."""
+    ph = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(ph, pw, channels)
+    if depth == 8:
+        return rows.reshape(ph, pw, channels)
+    # 1, 2 or 4 bits, one channel (gray or a palette index), first sample in
+    # the high bits of a byte
+    bits = np.unpackbits(rows, axis=1).reshape(ph, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :pw, None]
+
+
+def _decode(path) -> tuple[np.ndarray, int, int]:
+    """A PNG file -> (samples (H, W, C), bit depth, colour type); a palette
+    image's samples are its RGB entries."""
     with open(path, "rb") as fh:
         data = fh.read()
     header, palette, idat = None, None, []
@@ -184,36 +219,55 @@ def read_png(path) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit samples; only 8-bit PNG is "
-                         f"read")
     if colour not in _CHANNELS:
         raise ValueError(f"{path}: unknown PNG colour type {colour}")
-    if interlace:
-        raise ValueError(f"{path}: Adam7-interlaced PNG is not read")
+    if depth not in _DEPTHS[colour]:
+        raise ValueError(f"{path}: {depth}-bit samples are not a PNG "
+                         f"format for colour type {colour}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
     if colour == 3 and palette is None:
         raise ValueError(f"{path}: palette image without a PLTE chunk")
-    bpp = _CHANNELS[colour]
+    channels = _CHANNELS[colour]
+    bits = channels * depth
+    bpp = max(1, bits // 8)          # the filters' byte step
+    passes = [(r0, c0, dr, dc, -(-(h - r0) // dr), -(-(w - c0) // dc))
+              for r0, c0, dr, dc in (_ADAM7 if interlace else ((0, 0, 1, 1),))
+              if r0 < h and c0 < w]
+    sizes = [ph * (-(-pw * bits // 8) + 1) for *_, ph, pw in passes]
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt IDAT stream ({e})") from None
-    if len(raw) != h * (w * bpp + 1):
+    if len(raw) != sum(sizes):
+        kind = f"{depth}-bit" + (" Adam7-interlaced" if interlace else "")
         raise ValueError(f"{path}: IDAT holds {len(raw)} bytes, a {w}x{h} "
-                         f"frame needs {h * (w * bpp + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, w * bpp + 1)
-    ftype, filt = rows[:, 0], rows[:, 1:]
-    if ftype.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown PNG row filter {ftype.max()}")
-    unfilter = (_unfilter_diagonals if (ftype >= 3).any()
-                else _unfilter_rows)
-    img = unfilter(ftype, filt, bpp).reshape(h, w, bpp)
+                         f"{kind} frame needs {sum(sizes)}")
+    img = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (r0, c0, dr, dc, ph, pw), size in zip(passes, sizes):
+        rows = np.frombuffer(raw, np.uint8, size, pos).reshape(ph, -1)
+        pos += size
+        ftype, filt = rows[:, 0], rows[:, 1:]
+        if ftype.max(initial=0) > 4:
+            raise ValueError(f"{path}: unknown PNG row filter {ftype.max()}")
+        unfilter = (_unfilter_diagonals if (ftype >= 3).any()
+                    else _unfilter_rows)
+        img[r0::dr, c0::dc] = _pass_samples(unfilter(ftype, filt, bpp), pw,
+                                            channels, depth)
     if colour == 3:
         if img.max(initial=0) >= len(palette):
             raise ValueError(f"{path}: a palette index past the "
                              f"{len(palette)} entries of PLTE")
         img = palette[img[..., 0]]
-    return img
+    return img, depth, colour
+
+
+def read_png(path) -> np.ndarray:
+    """A PNG file -> (H, W, C) samples: C = 1 gray, 2 gray+alpha, 3 RGB
+    (and palette, expanded), 4 RGBA; uint8 at bit depth 8 and below (gray
+    at 1, 2 or 4 bits as stored, 0 to 2**depth - 1), uint16 at 16."""
+    return _decode(path)[0]
 
 
 def frame_size(path) -> tuple[int, int]:
@@ -231,13 +285,25 @@ def frame_size(path) -> tuple[int, int]:
         return im.size[1], im.size[0]
 
 
+def _rgb_as_pil(img: np.ndarray, depth: int, colour: int) -> np.ndarray:
+    """Decoded samples -> (H, W, 3) uint8 by PIL's rules (see the module
+    docstring)."""
+    if depth == 16:
+        # 16-bit gray opens as I;16, which .convert("RGB") clips; every
+        # other 16-bit type opens as 8-bit, each sample's high byte
+        img = (np.minimum(img, 255) if colour == 0 else img >> 8).astype(
+            np.uint8)
+    elif depth < 8 and colour == 0:
+        img = img * np.uint8(255 // (2 ** depth - 1))
+    if img.shape[-1] in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
 def read_rgb(path) -> np.ndarray:
     """A frame file -> (H, W, 3) uint8, as PIL's ``.convert("RGB")``."""
     if str(path).lower().endswith(".png"):
-        img = read_png(path)
-        if img.shape[-1] in (1, 2):
-            return np.repeat(img[..., :1], 3, axis=-1)
-        return np.ascontiguousarray(img[..., :3])
+        return _rgb_as_pil(*_decode(path))
     try:
         from PIL import Image
     except ImportError as e:
