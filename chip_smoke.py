@@ -81,7 +81,14 @@ session comes last (7), since host-bound timings read slower after one:
    processes: the epoch seam, the Adamax step count and the plateau state
    carried over; then its ms/step from disk (2 epochs of 10 steps, the
    second the reading) beside phase 5's in memory, the same decoded on the
-   prefetch thread, and on the triplets as written (Up rows);
+   prefetch thread, on the triplets as written (Up rows), and with cuDNN's
+   TF32 flag at PyTorch's default (the apps'), restored afterwards; every
+   batch through the C++ augment (its call count exactly); before it,
+   native_augment: the trainer's C++ host augment (vfidkr_torch.data.native)
+   built with g++, its batches bit for bit equal to the Python path at B=3
+   and 12 (the 18 triplets, 288x512 frames with random crop offsets, the
+   swap and each flip forced), both paths' host ms a batch (median of 20)
+   and its thread count;
 5g. depth: the depth-eval core (vfidkr_torch.apps.depth_eval.evaluate_depth)
    at 256x320 on two samples with depths and SDR pairs, MegaDepth from
    seed 0, on the card and on the CPU: si-RMSE within rtol 1e-4, the SDR
@@ -165,7 +172,9 @@ session comes last (7), since host-bound timings read slower after one:
 7. profile: where the slow-motion forward's, the two train steps' and the
    bf16 lane's time goes (each stage alone, the Adamax step, torch.profiler
    over whole runs: busy share, the largest device kernels), and each kernel
-   case's (and its yardstick's) device time per call;
+   case's (and its yardstick's) device time per call; then
+   vfidkr_torch.utils.trace around one DAIN eval forward, whose Chrome trace
+   must hold K1-K3's device events;
 8. one JSON line of the kernels, with each kernel's launches in one run of
    each path, then the result line.
 """
@@ -197,7 +206,7 @@ from vfidkr_torch import ops as OPS
 from vfidkr_torch.apps import depth_eval
 from vfidkr_torch.apps.depth_eval import evaluate_depth
 from vfidkr_torch.convert import reference_state_dict
-from vfidkr_torch.data import synthetic
+from vfidkr_torch.data import native, synthetic, vimeo90k
 from vfidkr_torch.kernels import build
 from vfidkr_torch.models import DAIN, DAINSlowMotion
 from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP, VESTIGIAL
@@ -267,6 +276,10 @@ DISK_TRIPLETS, DISK_STEPS, DISK_PATIENCE, DISK_FACTOR = 18, 4, 1, 0.2
 # first holds the fresh trainer's set-up)
 DISK_READ_STEPS = 10
 DISK_HW = (H, W)
+# the native_augment phase: batches of the trainer's B and of 12, on the 18
+# triplets at the crop's size and on frames larger than the crop (random
+# crop offsets); its host times the median of 20 batches
+AUG_BATCHES, AUG_LARGE_HW, AUG_REPS = (TRAIN_B, 12), (288, 512), 20
 DEPTH_HW, DEPTH_SDR_PAIRS = (256, 320), 200   # the depth phase's samples
 # the row-sharded phases: the op chains at the video's padded frame in 4
 # shards of 192 rows with halo 32 (256 rows a block), |fy| bounded to 28 px;
@@ -385,6 +398,9 @@ def card_label(smi: str | None = None) -> str:
     return smi.strip().splitlines()[0]
 
 
+TF32_DEFAULTS: dict = {}         # PyTorch's, read before phase 1 turns TF32 off
+
+
 def phase_device() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on an NVIDIA "
@@ -397,9 +413,11 @@ def phase_device() -> torch.device:
     print(card_label(smi))
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    TF32_DEFAULTS.update(cudnn=torch.backends.cudnn.allow_tf32,
+                         matmul=torch.backends.cuda.matmul.allow_tf32)
     print(f"[device] TF32 defaults: cudnn.allow_tf32="
-          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32}")
+          f"{TF32_DEFAULTS['cudnn']}, cuda.matmul.allow_tf32="
+          f"{TF32_DEFAULTS['matmul']}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("[device] TF32 set: cudnn.allow_tf32=False, "
@@ -2160,16 +2178,118 @@ def _train_argv(data, save, dev) -> list:
             str(dev)]
 
 
-def _print_disk_times(label, out, step_ms, steps=DISK_READ_STEPS) -> None:
+def _print_disk_times(label, out, step_ms, card,
+                      steps=DISK_READ_STEPS) -> None:
     per = _epoch_ms_per_step(out, steps)
-    print(f"[times] DAIN train step from disk, B={TRAIN_B} {DISK_HW[0]}x"
-          f"{DISK_HW[1]} float32, PNGs {label} "
+    print(f"[times] {card}: DAIN train step from disk, B={TRAIN_B} "
+          f"{DISK_HW[0]}x{DISK_HW[1]} float32, PNGs {label} "
           f"(epoch time / {steps} steps, host clock): "
           + ", ".join(f"epoch {e} {ms:.3f} ms/step" for e, ms in per.items())
           + f"; in memory {step_ms:.3f} ms/step (the train phase's median)")
 
 
-def phase_train_from_disk(dev: torch.device, step_ms: float) -> None:
+def _draws(triplets, rng) -> list:
+    """The records of a training batch, drawn in the reference's order."""
+    return [vimeo90k.draw_augment(t[0].shape[:2], True, rng)
+            for t in triplets]
+
+
+def _plain_batch(triplets, records) -> dict:
+    """A batch by the Python path, as the loader made it before the C++
+    augment: apply_augment a sample, np.stack, the NHWC -> NCHW copy."""
+    x0, x1, y = (np.stack(s) for s in zip(*(
+        vimeo90k.apply_augment(t, r) for t, r in zip(triplets, records))))
+    return {k: torch.from_numpy(np.ascontiguousarray(v.transpose(0, 3, 1, 2)))
+            for k, v in (("x0", x0), ("x1", x1), ("y", y))}
+
+
+def _native_batch(triplets, records) -> dict:
+    """The same batch through the C++ augment: one call."""
+    return native.augment_triplets(triplets, records, vimeo90k.CROP_HW)
+
+
+def _same_batch(got, want, what) -> None:
+    for k in ("x0", "x1", "y"):
+        if got[k].shape != want[k].shape or not torch.equal(got[k], want[k]):
+            raise AssertionError(f"native augment differs from the Python "
+                                 f"path: {what}, {k}")
+
+
+def phase_native_augment(card: str) -> None:
+    """The trainer's C++ host augment (vfidkr_torch.data.native): its build
+    with g++, then its batches held bit for bit to the Python path at B=3
+    and B=12 through Vimeo90KDataset (the 18 synthetic 256x448 triplets, and
+    288x512 ones whose random crops have non-zero offsets), with the swap
+    and each flip forced on, and both paths' host ms a batch."""
+    t = time.perf_counter()
+    lib = native.build()
+    native.load_library()
+    print(f"[native_augment] built {lib.name} with g++ in "
+          f"{time.perf_counter() - t:.2f} s; {native.thread_count()} OpenMP "
+          f"threads a call (OMP_NUM_THREADS="
+          f"{os.environ.get('OMP_NUM_THREADS')}); OpenMP runtimes mapped: "
+          f"{native.openmp_runtimes()}")
+    with tempfile.TemporaryDirectory(prefix="vfidkr_aug_") as tmp:
+        trees = {}
+        for hw in (DISK_HW, AUG_LARGE_HW):
+            root = Path(tmp) / f"{hw[0]}x{hw[1]}"
+            _run_captured("native_augment", synthetic.main, [
+                "--out", str(root), "--n", str(DISK_TRIPLETS), "--height",
+                str(hw[0]), "--width", str(hw[1]), "--test-frac", "0.34"])
+            train, test = vimeo90k.vimeo90k_splits(str(root))
+            names = train + test
+            frames = vimeo90k.read_frames(
+                [root / "sequences" / n / f for n in names
+                 for f in vimeo90k.TRIPLET])
+            trees[hw] = (str(root), names,
+                         [frames[j:j + 3] for j in range(0, len(frames), 3)])
+        compared = 0
+        for hw, (root, names, triplets) in trees.items():
+            for b in AUG_BATCHES:
+                ds = vimeo90k.Vimeo90KDataset(root, names, b, seed=b)
+                sampler = vimeo90k.BalancedSampler(len(names), b)
+                rng = np.random.RandomState(b)
+                for got in ds.batches(3):
+                    trips = [triplets[next(sampler)] for _ in range(b)]
+                    _same_batch(got, _plain_batch(trips, _draws(trips, rng)),
+                                f"{hw} B={b}")
+                    compared += 1
+                # the swap, each flip, and all three forced on, with the
+                # crop offsets drawn
+                for swap, lr, ud in ((1, 0, 0), (0, 1, 0), (0, 0, 1),
+                                     (1, 1, 1)):
+                    draws = np.random.RandomState(b + hw[0])
+                    recs = [(swap, oy, ox, lr, ud)
+                            for _, oy, ox, _, _ in _draws(triplets[:b],
+                                                          draws)]
+                    _same_batch(_native_batch(triplets[:b], recs),
+                                _plain_batch(triplets[:b], recs),
+                                f"{hw} B={b} forced {(swap, lr, ud)}")
+                    compared += 1
+        print(f"[native_augment] {card}: {compared} batches bit for bit "
+              f"equal to the Python path (B={list(AUG_BATCHES)}, "
+              f"{DISK_HW[0]}x{DISK_HW[1]} and {AUG_LARGE_HW[0]}x"
+              f"{AUG_LARGE_HW[1]} frames cropped to {H}x{W}; swap, "
+              f"left-right, up-down and all three forced)")
+        _, _, triplets = trees[DISK_HW]
+        for b in AUG_BATCHES:
+            batch = triplets[:b]
+            times = {}
+            for label, fn in (("native", _native_batch),
+                              ("Python", _plain_batch)):
+                rng = np.random.RandomState(0)
+                fn(batch, _draws(batch, rng))
+                times[label] = _median_s(
+                    lambda: fn(batch, _draws(batch, rng)), AUG_REPS) * 1000
+            print(f"[times] {card}: host augment of a B={b} batch of "
+                  f"{H}x{W} triplets (decoded frames in, NCHW float32 "
+                  f"tensors out; median of {AUG_REPS}, host clock): native "
+                  f"{times['native']:.3f} ms on {native.thread_count()} "
+                  f"threads, Python path {times['Python']:.3f} ms")
+
+
+def phase_train_from_disk(dev: torch.device, step_ms: float,
+                          card: str) -> None:
     """The trainer (vfidkr_torch.apps.train.main) on 18 synthetic triplets
     written by vfidkr_torch.data.synthetic and re-encoded with PIL's row
     filters: 2 epochs of 4 steps at B=3, then --resume to 3: the epoch
@@ -2192,8 +2312,17 @@ def phase_train_from_disk(dev: torch.device, step_ms: float) -> None:
             else:
                 dst.write_bytes(src.read_bytes())
         argv = _train_argv(data, save, dev)
+        native.reset_calls()
         _, out_a, _ = _run_captured("train_from_disk", train_app.main,
                                     argv + ["--num-epochs", "2"])
+        # every batch, train and validation, one call of the C++ augment
+        want_calls = 2 * (DISK_STEPS + 1)
+        print(f"[train_from_disk] the trainer's batches went through the C++ "
+              f"augment: {native.CALLS} calls in 2 epochs of {DISK_STEPS} "
+              f"train batches and 1 validation batch")
+        if native.CALLS != want_calls:
+            raise AssertionError(f"{native.CALLS} calls of the C++ augment, "
+                                 f"want {want_calls}")
         first = torch.load(save / "epoch1.pth", weights_only=True)
         _, out_b, _ = _run_captured("train_from_disk", train_app.main,
                                     argv + ["--num-epochs", "3", "--resume"])
@@ -2214,6 +2343,17 @@ def phase_train_from_disk(dev: torch.device, step_ms: float) -> None:
                 "train_from_disk", run,
                 _train_argv(root, Path(tmp) / f"run{len(readings)}", dev)
                 + read)
+        # the apps' default: cuDNN's TF32 flag as PyTorch sets it
+        label = (f"filtered as PIL filters them, 4 decode workers, "
+                 f"cudnn.allow_tf32={TF32_DEFAULTS['cudnn']} (PyTorch's "
+                 f"default)")
+        torch.backends.cudnn.allow_tf32 = TF32_DEFAULTS["cudnn"]
+        try:
+            _, readings[label], _ = _run_captured(
+                "train_from_disk", train_app.main,
+                _train_argv(data, Path(tmp) / "run_tf32", dev) + read)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
     epochs = rows[:, 0].astype(int).tolist()
     steps = {int(s["step"]) for s in last["optimizer"]["state"].values()}
     want_plateau = plateau_step(PlateauState(**first["plateau"]), rows[2, 3],
@@ -2237,9 +2377,10 @@ def phase_train_from_disk(dev: torch.device, step_ms: float) -> None:
                                 rel_tol=1e-6):
         raise AssertionError("the resume did not restore the plateau state")
     _print_disk_times("filtered as PIL filters them, 4 decode workers, "
-                      "the resumed run", out_a + out_b, step_ms, DISK_STEPS)
+                      "the resumed run", out_a + out_b, step_ms, card,
+                      DISK_STEPS)
     for label, out in readings.items():
-        _print_disk_times(label, out, step_ms)
+        _print_disk_times(label, out, step_ms, card)
 
 
 def make_depth_samples(rng: np.random.RandomState) -> list:
@@ -2918,6 +3059,34 @@ def png_frames(g: torch.Generator) -> list:
          palette[index[..., 0]].astype(np.uint8))]
 
 
+def phase_trace(dev: torch.device, card: str) -> None:
+    """vfidkr_torch.utils.trace around a DAIN eval forward on the card: its
+    Chrome trace holds the card's kernels, K1-K3 among them (run last: a
+    profiler session slows host-bound timings after it)."""
+    from vfidkr_torch.utils import Timer, trace
+    model = DAIN(generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    x0, x1 = (torch.rand(1, 3, H, W, device=dev) for _ in range(2))
+    timer = Timer()
+    with tempfile.TemporaryDirectory(prefix="vfidkr_trace_") as tmp:
+        with torch.inference_mode(), trace(tmp), timer:
+            model(x0, x1)
+            torch.cuda.synchronize()
+        files = list(Path(tmp).glob("*.pt.trace.json"))
+        events = json.loads(files[0].read_text())["traceEvents"]
+    kernels_seen = {e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"}
+    ours = {k: any(f"{k}_kernel" in n for n in kernels_seen)
+            for k in ("filter_interpolate_fwd", "flow_project_scatter",
+                      "flow_project_finalize")}
+    print(f"[trace] {card}: utils.trace wrote {files[0].name} with "
+          f"{len(kernels_seen)} distinct device kernels; K1-K3 among them: "
+          f"{ours}; the section took {timer.meter.val * 1000:.1f} ms with "
+          f"the profiler on")
+    if not all(ours.values()):
+        raise AssertionError(f"the trace lacks device events of K1-K3: "
+                             f"{ours}")
+
+
 def phase_png_depths(dev: torch.device, card: str) -> None:
     """The PNG formats past 8-bit plain (no PIL on the card's machine):
     four 1280x720 frames written by hand, read back by read_rgb and held
@@ -2993,7 +3162,9 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     video_launches = phase_video(dev)
     print(f"[time] the video phase: {time.perf_counter() - t0:.1f} s")
-    phase_train_from_disk(dev, step_ms)
+    card = card_label()
+    phase_native_augment(card)
+    phase_train_from_disk(dev, step_ms, card)
     phase_depth(dev)
     print(f"[time] the drivers' phases checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3002,7 +3173,6 @@ def main() -> None:
                          "data_parallel": phase_data_parallel(dev)}
     print(f"[time] the parallel phases checked and timed: "
           f"{time.perf_counter() - t0:.1f} s")
-    card = card_label()
     dormant_launches = {"dormant_ops": phase_dormant_ops(dev, card),
                         "vestigial_eval": phase_vestigial(dev, card)}
     phase_png_depths(dev, card)
@@ -3016,6 +3186,7 @@ def main() -> None:
     phase_slowmo_train_profile(smt_model, smt_opt, smt_batch, smt_ms)
     phase_bf16_profile(eval_bf16, slowmo_bf16, i0, i2)
     phase_device_times(cases, times)
+    phase_trace(dev, card)
     done = {key: {"kernel": c["kernel"], "max_abs_err": c["err"], **times[key],
                   **({"direct_tiles": c["direct_tiles"]}
                      if "direct_tiles" in c else {})}

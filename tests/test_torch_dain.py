@@ -123,7 +123,8 @@ def test_port_imports_no_jax():
             "vfidkr_torch.utils.image_io, vfidkr_torch.utils.depth_eval, "
             "vfidkr_torch.data.synthetic, vfidkr_torch.apps.depth_eval, "
             "vfidkr_torch.apps.interpolate_video, vfidkr_torch.parallel, "
-            "vfidkr_torch.parallel.spatial, vfidkr_torch.parallel.mesh; "
+            "vfidkr_torch.parallel.spatial, vfidkr_torch.parallel.mesh, "
+            "vfidkr_torch.data.native, vfidkr_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'jaxlib', 'vfidkr_tpu')); "
             "assert not bad, bad")

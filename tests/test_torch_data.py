@@ -1,5 +1,6 @@
 """The port's copy of the Vimeo-90K pipeline (vfidkr_torch.data.vimeo90k)
-gives the JAX package's batches, on a synthetic 64x64 tree written by
+gives the JAX package's batches (as NCHW tensors, made by the port's C++
+augment), on a synthetic 64x64 tree written by
 tools/make_synthetic_vimeo.py: the split lists, a few augmented training
 batches from one seed, and the sequential validation batches, equal to the
 last bit, with the frames decoded on the prefetch thread or in worker
@@ -53,8 +54,10 @@ def test_batches_match_jax(dataset, augment, sequential):
     for a, b in zip(got, want):
         assert a.keys() == b.keys() == {"x0", "x1", "y"}
         for k in a:
-            assert a[k].dtype == b[k].dtype == np.float32
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            assert a[k].dtype == torch.float32 and b[k].dtype == np.float32
+            np.testing.assert_array_equal(a[k].numpy(),
+                                          b[k].transpose(0, 3, 1, 2),
+                                          err_msg=k)
 
 
 def test_train_batches_are_the_tensors_of_jax_batches(dataset):

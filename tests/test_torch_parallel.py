@@ -537,9 +537,11 @@ def test_data_parallel_resume_restores_every_rank(dp_runs):
                       ndmin=2).shape == (2, 5)
 
 
-def test_rank_shards_are_the_global_batch(tmp_path):
-    """Two ranks' batches (each decoding its own share) stacked are the
-    one-process batch, augmentations included."""
+@pytest.mark.parametrize("world", [2, 4])
+def test_rank_shards_are_the_global_batch(tmp_path, world):
+    """The ranks' batches (each decoding its own share) stacked are the
+    one-process batch, augmentations included: each share's samples go
+    through the C++ augment, and the others' draws are still made."""
     from vfidkr_torch.data import synthetic
     from vfidkr_torch.data.vimeo90k import Vimeo90KDataset, vimeo90k_splits
     from vfidkr_torch.parallel.mesh import Mesh, shard_range
@@ -549,8 +551,8 @@ def test_rank_shards_are_the_global_batch(tmp_path):
     crop = (32, 40)         # random crops: the draws depend on the size
     whole = Vimeo90KDataset(str(tmp_path), train, 4, seed=5, crop_hw=crop)
     parts = [Vimeo90KDataset(str(tmp_path), train, 4, seed=5, crop_hw=crop,
-                             shard=shard_range(4, Mesh(r, 2)))
-             for r in range(2)]
+                             shard=shard_range(4, Mesh(r, world)))
+             for r in range(world)]
     for want, *got in zip(whole.batches(3), *(p.batches(3) for p in parts)):
         for k in ("x0", "x1", "y"):
             np.testing.assert_array_equal(

@@ -32,7 +32,8 @@ from typing import Iterable, Tuple
 import numpy as np
 import torch
 
-from vfidkr_torch.config import (add_device_flag, add_model_flags,
+from vfidkr_torch.config import (EvalConfig, add_device_flag,
+                                 add_model_flags, add_save_which_flag,
                                  build_eval_model)
 from vfidkr_torch.utils import (interpolation_error, pad_to_multiple, psnr,
                                 ssim, unpad)
@@ -46,7 +47,8 @@ def to_tensor(frame: np.ndarray, device) -> torch.Tensor:
 
 
 def interpolate_pair(model: torch.nn.Module, x0: torch.Tensor,
-                     x1: torch.Tensor, save_which: int = 1) -> torch.Tensor:
+                     x1: torch.Tensor,
+                     save_which: int = EvalConfig.save_which) -> torch.Tensor:
     """(B,3,H,W) frame pairs -> the synthesised middle frames, padded for
     the model, unpadded, clipped to [0, 1]: ``outputs[save_which]`` (0 the
     blend, 1 the rectified)."""
@@ -77,7 +79,8 @@ def _forward_ms(model, x0, x1, iters=5) -> float:
 
 def evaluate(model: torch.nn.Module,
              pairs: Iterable[Tuple[str, np.ndarray, np.ndarray, np.ndarray]],
-             device, save_which: int = 1, measure_time: bool = False):
+             device, save_which: int = EvalConfig.save_which,
+             measure_time: bool = False):
     """The in-memory core: ``pairs`` of (name, first, second, ground truth),
     (H,W,3) float32 frames in [0, 1].  Returns (per-pair results, summary):
     each result has the name, IE, PSNR, SSIM and the synthesised frame as
@@ -123,8 +126,7 @@ def parse_args(argv=None):
     ap.add_argument("--torch-checkpoint", default=None,
                     help="a reference .pth or a checkpoint of the port's "
                          "trainer")
-    ap.add_argument("--save-which", type=int, default=1,
-                    help="0: blended output, 1: rectified")
+    add_save_which_flag(ap)
     ap.add_argument("--measure-time", action="store_true",
                     help="time each padded shape's forward on the card "
                          "(CUDA events, median of 5)")

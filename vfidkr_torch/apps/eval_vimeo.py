@@ -36,14 +36,15 @@ import numpy as np
 import torch
 
 from vfidkr_torch.apps.demo_middlebury import interpolate_pair
-from vfidkr_torch.config import (add_device_flag, add_model_flags,
+from vfidkr_torch.config import (EvalConfig, add_device_flag,
+                                 add_model_flags, add_save_which_flag,
                                  build_eval_model)
 from vfidkr_torch.utils import psnr_per_image, ssim_per_image
 from vfidkr_torch.utils.image_io import write_png
 
 
 def eval_step(model: torch.nn.Module, x0: torch.Tensor, x1: torch.Tensor,
-              y: torch.Tensor, save_which: int = 1):
+              y: torch.Tensor, save_which: int = EvalConfig.save_which):
     """One batch of (B,3,H,W) frames -> per-pair PSNR, SSIM and IE (B,) and
     the synthesised frames (B,H,W,3) uint8."""
     out = interpolate_pair(model, x0, x1, save_which)
@@ -72,8 +73,7 @@ def parse_args(argv=None):
                     help="a reference .pth or a checkpoint of the port's "
                          "trainer")
     ap.add_argument("--batch-size", type=int, default=1)
-    ap.add_argument("--save-which", type=int, default=1,
-                    help="0: blended output, 1: rectified")
+    add_save_which_flag(ap)
     ap.add_argument("--limit", type=int, default=None,
                     help="cap the number of eval batches (of --batch-size "
                          "pairs each), not pairs")
@@ -89,7 +89,7 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     from vfidkr_torch.data.vimeo90k import (Vimeo90KDataset, prefetch,
-                                            to_tensors, vimeo90k_splits)
+                                            vimeo90k_splits)
 
     device = torch.device(args.device)
     model = build_eval_model(args)
@@ -107,8 +107,7 @@ def main(argv=None) -> dict:
     for batch, valid in prefetch(batches_with_remainder(ds), 2):
         if done >= n_batches:
             break
-        tensors = to_tensors(batch)
-        xs = [tensors[k].to(device) for k in ("x0", "x1", "y")]
+        xs = [batch[k].to(device) for k in ("x0", "x1", "y")]
         if t0 is None:
             # one forward outside the timed loop (cuDNN's set-up, the
             # kernels' build and load)

@@ -67,8 +67,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from vfidkr_torch.config import (NET_NAMES, ModelConfig, add_device_flag,
-                                 add_model_flags)
+from vfidkr_torch.config import (NET_NAMES, EvalConfig, ModelConfig,
+                                 add_device_flag, add_model_flags,
+                                 add_save_which_flag)
 from vfidkr_torch.data.vimeo90k import prefetch
 from vfidkr_torch.utils import pad_to_multiple, unpad
 from vfidkr_torch.utils.image_io import read_rgb, write_png
@@ -98,8 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
                          help="a reference .pth state dict")
     weights.add_argument("--checkpoint", default=None,
                          help="a checkpoint of the port's trainer")
-    ap.add_argument("--save-which", type=int, default=1,
-                    help="0: blended output, 1: rectified")
+    add_save_which_flag(ap)
     ap.add_argument("--spatial-shards", type=int, default=1,
                     help="row-shard frames over N devices with halo exchange"
                          " (N threads on the CPU with --device cpu)")
@@ -140,7 +140,7 @@ def pad_rule(spatial_shards: int = 1) -> tuple[int, int]:
     H/n + 2 halo rows must keep the networks' /64, so H pads to a multiple
     of 64 n (and 128), and a dim already divisible keeps the multiple."""
     if spatial_shards == 1:
-        return 128, 32
+        return EvalConfig.pad_multiple, EvalConfig.min_pad
     multiple = max(128, 64 * spatial_shards)
     return multiple, multiple // 2
 
@@ -175,7 +175,8 @@ def sharded_forward(model: torch.nn.Module, spatial_shards: int, halo: int,
 
 
 def frames_between(model, a: torch.Tensor, b: torch.Tensor,
-                   pads, save_which: int = 1) -> torch.Tensor:
+                   pads, save_which: int = EvalConfig.save_which
+                   ) -> torch.Tensor:
     """Padded (1, 3, H', W') frames -> the synthesised frames between them,
     (K, H, W, 3) uint8 on the device: each unpadded by ``pads``, clipped to
     [0, 1] and rounded to the 8-bit grid.  ``model`` is the model, or a

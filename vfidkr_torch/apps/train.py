@@ -34,11 +34,13 @@ on the whole batch.  The losses and the validation metrics are averaged
 across ranks; rank 0 alone writes the checkpoints, ``log.txt`` and the
 TensorBoard scalars; every rank restores on ``--resume``.  At world size 1
 the trainer is the one-process trainer.  The PNG frames are decoded
-without PIL (``vfidkr_torch.utils.image_io``).  On the card they are decoded
-in up to 4 worker processes (``vfidkr_torch.data.vimeo90k.decode_pool``): a
-batch of PIL-written frames takes the decoder's diagonal walk, and on one
-thread it outlasts the step.  On the CPU, which trains on every core, they
-are decoded on the prefetch thread.
+without PIL (``vfidkr_torch.utils.image_io``) and augmented by the port's
+C++ augment (``vfidkr_torch.data.native``, built with ``g++`` at first
+use).  On the card they are decoded in up to 4 worker processes
+(``vfidkr_torch.data.vimeo90k.decode_pool``): a batch of PIL-written frames
+takes the decoder's diagonal walk, and on one thread it outlasts the step.
+On the CPU, which trains on every core, they are decoded on the prefetch
+thread.
 """
 
 from __future__ import annotations
@@ -53,24 +55,30 @@ import torch
 
 
 def parse_args(argv=None):
-    from vfidkr_torch.config import add_device_flag
+    from vfidkr_torch.config import (NET_NAMES, DataConfig, ModelConfig,
+                                     add_device_flag)
+    from vfidkr_torch.training.train_state import TrainConfig
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     add_device_flag(ap)
     ap.add_argument("--dataset-path", required=True)
     ap.add_argument("--save-path", required=True)
-    ap.add_argument("--net-name", default="DAIN",
-                    choices=["DAIN", "DAIN_slowmotion"])
-    ap.add_argument("--batch-size", type=int, default=3)
+    ap.add_argument("--net-name", default=ModelConfig.net_name,
+                    choices=NET_NAMES)
+    ap.add_argument("--batch-size", type=int, default=DataConfig.batch_size)
     ap.add_argument("--num-epochs", type=int, default=50)
-    ap.add_argument("--lr", type=float, default=2e-3)
-    ap.add_argument("--rectify-lr", type=float, default=1e-3)
-    ap.add_argument("--flow-lr-coe", type=float, default=0.01)
-    ap.add_argument("--filter-lr-coe", type=float, default=1.0)
-    ap.add_argument("--alpha", type=float, nargs=2, default=[0.0, 1.0])
-    ap.add_argument("--epsilon", type=float, default=1e-6)
-    ap.add_argument("--factor", type=float, default=0.2)
-    ap.add_argument("--patience", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=TrainConfig.lr)
+    ap.add_argument("--rectify-lr", type=float,
+                    default=TrainConfig.rectify_lr)
+    ap.add_argument("--flow-lr-coe", type=float,
+                    default=TrainConfig.flow_lr_coe)
+    ap.add_argument("--filter-lr-coe", type=float,
+                    default=TrainConfig.filter_lr_coe)
+    ap.add_argument("--alpha", type=float, nargs=2,
+                    default=list(TrainConfig.alpha))
+    ap.add_argument("--epsilon", type=float, default=TrainConfig.epsilon)
+    ap.add_argument("--factor", type=float, default=TrainConfig.factor)
+    ap.add_argument("--patience", type=int, default=TrainConfig.patience)
+    ap.add_argument("--seed", type=int, default=DataConfig.seed)
     ap.add_argument("--steps-per-epoch", type=int, default=None,
                     help="default: len(train) // batch size, as the "
                          "reference")
@@ -84,6 +92,22 @@ def parse_args(argv=None):
                          "the plateau schedule and the best validation loss, "
                          "and appends to log.txt")
     return ap.parse_args(argv)
+
+
+def make_config(args):
+    """The run's ``Config`` from its flags; what no flag sets (the crop, the
+    augmentation, the dataset's name) keeps its default."""
+    from vfidkr_torch.config import Config, DataConfig, ModelConfig
+    from vfidkr_torch.training.train_state import TrainConfig
+    return Config(
+        model=ModelConfig(net_name=args.net_name),
+        data=DataConfig(dataset_path=args.dataset_path,
+                        batch_size=args.batch_size, seed=args.seed),
+        train=TrainConfig(
+            lr=args.lr, rectify_lr=args.rectify_lr,
+            flow_lr_coe=args.flow_lr_coe, filter_lr_coe=args.filter_lr_coe,
+            alpha=tuple(args.alpha), epsilon=args.epsilon,
+            factor=args.factor, patience=args.patience))
 
 
 def main(argv=None) -> None:
@@ -101,18 +125,22 @@ def train(args, pool=None) -> None:
     """The training run of ``args``, its frames decoded in ``pool``, as the
     rank that the ``torchrun`` environment names (the only one without
     it)."""
-    from vfidkr_torch.data.vimeo90k import (train_batches, val_batches,
-                                            vimeo90k_splits)
-    from vfidkr_torch.models import DAIN, DAINSlowMotion
+    from vfidkr_torch.data.vimeo90k import (DATASETS, train_batches,
+                                            val_batches)
     from vfidkr_torch.parallel import mesh as M
-    from vfidkr_torch.training import (CheckpointManager, TrainConfig,
-                                       eval_step, full_state, load_weights,
+    from vfidkr_torch.training import (CheckpointManager, eval_step,
+                                       full_state, load_weights,
                                        make_optimizer, plateau_init,
                                        plateau_step, restore_full_state,
                                        train_step)
 
+    cfg = make_config(args)
+    data, config = cfg.data, cfg.train
+    if data.dataset_name not in DATASETS:
+        raise ValueError(f"dataset {data.dataset_name!r}: the trainer reads "
+                         f"{sorted(DATASETS)}")
     mesh = M.create_mesh(args.device)
-    share = M.shard_range(args.batch_size, mesh)
+    share = M.shard_range(data.batch_size, mesh)
     device = mesh.device
     main_rank = mesh.is_main
     say = print if main_rank else (lambda *a, **k: None)
@@ -132,21 +160,12 @@ def train(args, pool=None) -> None:
         except ImportError:
             pass
 
-    config = TrainConfig(
-        lr=args.lr, rectify_lr=args.rectify_lr,
-        flow_lr_coe=args.flow_lr_coe, filter_lr_coe=args.filter_lr_coe,
-        alpha=tuple(args.alpha), epsilon=args.epsilon,
-        factor=args.factor, patience=args.patience)
-
-    train_paths, test_paths = vimeo90k_splits(args.dataset_path)
+    train_paths, test_paths = DATASETS[data.dataset_name](data.dataset_path)
     say(f"{len(train_paths) + len(test_paths)} samples found, "
           f"{len(train_paths)} train samples and {len(test_paths)} test "
           f"samples")
 
-    generator = torch.Generator().manual_seed(args.seed)
-    model = (DAINSlowMotion(0.5, generator=generator)
-             if args.net_name == "DAIN_slowmotion" else
-             DAIN(generator=generator))
+    model = cfg.model.build(torch.Generator().manual_seed(data.seed))
     if args.pretrained:
         loaded, _ = load_weights(model, args.pretrained)
         say(f"fine-tuning: loaded {len(loaded)} tensors from "
@@ -178,8 +197,8 @@ def train(args, pool=None) -> None:
     # every rank starts from rank 0's weights
     M.replicate(model, mesh)
 
-    steps = args.steps_per_epoch or len(train_paths) // args.batch_size
-    val_steps = args.val_batches or len(test_paths) // args.batch_size
+    steps = args.steps_per_epoch or len(train_paths) // data.batch_size
+    val_steps = args.val_batches or len(test_paths) // data.batch_size
     to_dev = lambda b: {k: v.to(device, non_blocking=True)
                         for k, v in b.items()}
     reduce_grads = (lambda m: M.average_gradients(m, mesh)) if mesh.joined \
@@ -189,8 +208,9 @@ def train(args, pool=None) -> None:
         t0 = time.time()
         train_losses = []
         for i, batch in enumerate(train_batches(
-                args.dataset_path, train_paths, args.batch_size, steps,
-                args.seed, epoch, pool, share)):
+                data.dataset_path, train_paths, data.batch_size, steps,
+                data.seed, epoch, pool, share, data.crop_hw,
+                data.augment_train)):
             metrics = M.mean_across(train_step(
                 model, optimizer, to_dev(batch), config, plateau.scale,
                 reduce_grads), mesh)
@@ -205,8 +225,9 @@ def train(args, pool=None) -> None:
         say(f"***** epoch {epoch} took {time.time() - t0:.3f}s *****")
 
         vals, psnrs = [], []
-        for batch in val_batches(args.dataset_path, test_paths,
-                                 args.batch_size, val_steps, pool, share):
+        for batch in val_batches(data.dataset_path, test_paths,
+                                 data.batch_size, val_steps, pool, share,
+                                 data.crop_hw):
             m = M.mean_across(eval_step(model, to_dev(batch), config), mesh)
             vals.append(float(m["total"]))
             psnrs.append(float(m["psnr"]))

@@ -1,11 +1,17 @@
-"""Model construction from the command-line flags of the port's apps.
+"""Configuration as plain data, and model construction from the flags of
+the port's apps.
 
-Counterpart of ``ModelConfig`` and ``add_model_flags`` in
-``vfidkr_tpu/config.py:22-106``, carrying what means something in the port:
-the network, its time step and the compute dtype (``"bfloat16"`` is the
-fast-eval lane).  The JAX package's implementation selectors
-(``filter_impl``, ``depth_impl``, ``steps_impl``, ``pwc_batch_chunk``,
-``dense_impl``) are TPU workarounds that the port leaves behind.
+Counterpart of ``vfidkr_tpu/config.py``: ``ModelConfig`` and
+``add_model_flags`` carry what means something in the port: the network,
+its time step and the compute dtype (``"bfloat16"`` is the fast-eval lane).
+The JAX package's implementation selectors (``filter_impl``,
+``depth_impl``, ``steps_impl``, ``pwc_batch_chunk``, ``dense_impl``) are TPU
+workarounds that the port leaves behind.  ``DataConfig``, ``EvalConfig``
+and ``Config`` keep JAX's fields and defaults, with the port's
+``TrainConfig``, and are where the defaults in use live: the loader's crop
+and augmentation (``data/vimeo90k.py``), the trainer's flags (it builds a
+``Config`` from them, ``apps/train.make_config``), the eval apps'
+``--save-which`` and the frames' padding (``utils/padding.py``).
 
 Every app of the port runs on the card unless asked for the CPU:
 ``--device`` defaults to ``cuda`` (``add_device_flag``).
@@ -15,8 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+from typing import TYPE_CHECKING, Tuple
 
 import torch
+
+if TYPE_CHECKING:
+    from vfidkr_torch.training.train_state import TrainConfig
 
 NET_NAMES = ("DAIN", "DAIN_slowmotion")
 
@@ -30,17 +40,16 @@ class ModelConfig:
 
     def build(self, generator: torch.Generator | None = None
               ) -> torch.nn.Module:
-        """The model, with seeded random weights (``generator``)."""
-        from vfidkr_torch.models import DAIN, DAINSlowMotion
+        """The model, with seeded random weights (``generator``), built by
+        ``models.build_model``."""
+        from vfidkr_torch.models import build_model
+        kwargs = dict(generator=generator, compute_dtype=self.compute_dtype)
         if self.net_name == "DAIN":
             if self.time_step != 0.5:
                 raise ValueError("DAIN interpolates at t = 0.5 only")
-            return DAIN(generator=generator, compute_dtype=self.compute_dtype)
-        if self.net_name == "DAIN_slowmotion":
-            return DAINSlowMotion(self.time_step, generator=generator,
-                                  compute_dtype=self.compute_dtype)
-        raise ValueError(f"net_name must be one of {NET_NAMES}, got "
-                         f"{self.net_name!r}")
+        else:
+            kwargs["timestep"] = self.time_step
+        return build_model(self.net_name, **kwargs)
 
     @classmethod
     def from_args(cls, args, **overrides) -> "ModelConfig":
@@ -50,6 +59,40 @@ class ModelConfig:
         picked = {k: v for k, v in vars(args).items() if k in fields}
         picked.update(overrides)
         return cls(**picked)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """datasetName / datasetPath / batch_size (``my_args.py:18-31``)."""
+    dataset_name: str = "Vimeo_90K_interp"
+    dataset_path: str = ""
+    batch_size: int = 3
+    crop_hw: Tuple[int, int] = (256, 448)
+    augment_train: bool = True
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """save_which and the padding policy (``my_args.py:40``;
+    ``demo_MiddleBury.py:294``)."""
+    save_which: int = 1            # 0: blended, 1: rectified
+    pad_multiple: int = 128
+    min_pad: int = 32
+
+
+def _train_config() -> "TrainConfig":
+    # imported at first use: the apps' flags need no training package
+    from vfidkr_torch.training.train_state import TrainConfig
+    return TrainConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = ModelConfig()
+    data: DataConfig = DataConfig()
+    train: "TrainConfig" = dataclasses.field(default_factory=_train_config)
+    eval: EvalConfig = EvalConfig()
 
 
 def add_model_flags(ap, net_name: str | None = None,
@@ -84,6 +127,11 @@ def build_eval_model(args) -> torch.nn.Module:
         print(f"loaded {len(loaded)} tensors ({len(skipped)} skipped)",
               file=sys.stderr)
     return model.to(torch.device(args.device)).eval()
+
+
+def add_save_which_flag(ap) -> None:
+    ap.add_argument("--save-which", type=int, default=EvalConfig.save_which,
+                    help="0: blended output, 1: rectified")
 
 
 def add_device_flag(ap) -> None:

@@ -18,11 +18,13 @@ The port's own copy of the JAX package's framework-free pipeline
   PIL's and most encoders' are, takes the decoder's diagonal walk, and a
   batch's nine of them on one thread take longer than a train step.
 
-For the same seed the batches equal the JAX package's.  The JAX package's
-optional C++ augment (``native/``) is not used: the Python path makes the
-same decisions and the same float32 values.  Batches are dicts of x0 (first
-frame), x1 (last frame) and y (the middle frame, the target), (B,3,H,W) in
-[0, 1], on the CPU.
+For the same seed the batches equal the JAX package's.  A batch's swap,
+crop, flips and ``u8 / 255`` run in the port's C++/OpenMP augment
+(``vfidkr_torch.data.native``, built at first use; it raises where it
+cannot be built), which writes the batch's tensors directly; the Python
+path (``augment_triplet``) is its plain version and no batch falls back to
+it.  Batches are dicts of x0 (first frame), x1 (last frame) and y (the
+middle frame, the target), (B,3,H,W) float32 tensors in [0, 1], on the CPU.
 
 Each training epoch draws from a sampler seeded by ``(seed, epoch)``, so a
 run resumed at epoch k sees the batches an uninterrupted run sees there.
@@ -46,14 +48,16 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vfidkr_torch.config import DataConfig
+from vfidkr_torch.data import native
 from vfidkr_torch.utils.image_io import frame_size, read_rgb
 
-__all__ = ["BalancedSampler", "Vimeo90KDataset", "augment_triplet",
-           "decode_pool", "draw_augment", "epoch_seed", "load_triplet",
-           "prefetch", "read_frames", "read_triplet_list", "to_tensors",
-           "train_batches", "val_batches", "vimeo90k_splits"]
+__all__ = ["BalancedSampler", "DATASETS", "Vimeo90KDataset",
+           "apply_augment", "augment_triplet", "decode_pool", "draw_augment", "epoch_seed", "load_triplet",
+           "prefetch", "read_frames", "read_triplet_list", "train_batches",
+           "val_batches", "vimeo90k_splits"]
 
-CROP_HW = (256, 448)
+CROP_HW = DataConfig.crop_hw
 
 
 def read_triplet_list(root: str, split_file: str) -> List[str]:
@@ -81,6 +85,11 @@ def vimeo90k_splits(root: str, train_list: str = "tri_trainlist.txt",
     if shuffle_seed is not None:
         np.random.RandomState(shuffle_seed).shuffle(train)
     return train, test
+
+
+# DataConfig.dataset_name -> the reader of its (train, test) splits (the
+# reference looks its --datasetName up among its datasets, my_args.py:18)
+DATASETS = {"Vimeo_90K_interp": vimeo90k_splits}
 
 
 TRIPLET = ("im1.png", "im2.png", "im3.png")
@@ -149,9 +158,17 @@ def augment_triplet(frames: Sequence[np.ndarray], augment: bool,
                     crop_hw: Tuple[int, int] = CROP_HW):
     """im1, im2, im3 -> one (x0, x1, y) sample, NHWC float32, with the
     reference augmentations, drawn from ``rng`` in the reference's order."""
+    return apply_augment(frames, draw_augment(frames[0].shape[:2], augment,
+                                              rng, crop_hw), crop_hw)
+
+
+def apply_augment(frames: Sequence[np.ndarray], record: Sequence[int],
+                  crop_hw: Tuple[int, int] = CROP_HW):
+    """im1, im2, im3 and a record (swap, oy, ox, fliplr, flipud) -> one
+    (x0, x1, y) sample, NHWC float32: the plain version of the C++
+    augment's data movement."""
     first, mid, last = frames
-    swap, oy, ox, lr, ud = draw_augment(first.shape[:2], augment, rng,
-                                        crop_hw)
+    swap, oy, ox, lr, ud = record
     if swap:
         first, last = last, first
     ch, cw = crop_hw
@@ -198,7 +215,8 @@ class BalancedSampler:
 
 
 class Vimeo90KDataset:
-    """Batches of triplets, NHWC float32: dict(x0=im1, x1=im3, y=im2).
+    """Batches of triplets, (B,3,H,W) float32 tensors: dict(x0=im1, x1=im3,
+    y=im2), made by the C++ augment (``native.augment_triplets``).
 
     With ``shard`` (a range of batch positions: a data-parallel rank's
     share) each batch holds only those samples of the global batch, and
@@ -232,17 +250,16 @@ class Vimeo90KDataset:
         own = [idxs[k] for k in self.shard]
         frames = read_frames([self._path(i, n) for i in own for n in TRIPLET],
                              self.pool)
-        samples = []
+        triplets = [frames[j:j + 3] for j in range(0, len(frames), 3)]
+        records = []
         for k, i in enumerate(idxs):
-            if k in self.shard:
-                j = 3 * len(samples)
-                samples.append(augment_triplet(frames[j:j + 3], self.augment,
-                                               self.rng, self.crop_hw))
-            else:
-                draw_augment(frame_size(self._path(i, TRIPLET[0])),
-                             self.augment, self.rng, self.crop_hw)
-        x0, x1, y = (np.stack(s) for s in zip(*samples))
-        return {"x0": x0, "x1": x1, "y": y}
+            owned = k in self.shard
+            hw = (triplets[len(records)][0].shape[:2] if owned
+                  else frame_size(self._path(i, TRIPLET[0])))
+            rec = draw_augment(hw, self.augment, self.rng, self.crop_hw)
+            if owned:
+                records.append(rec)
+        return native.augment_triplets(triplets, records, self.crop_hw)
 
     def batches(self, num_batches: Optional[int] = None,
                 sequential: bool = False) -> Iterator[dict]:
@@ -288,31 +305,28 @@ def epoch_seed(seed: int, epoch: int) -> int:
     return int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
 
 
-def to_tensors(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """NHWC float32 arrays -> contiguous NCHW tensors."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v.transpose(0, 3, 1, 2)))
-            for k, v in batch.items()}
-
-
 def train_batches(root: str, paths: Sequence[str], batch_size: int,
                   num_batches: int, seed: int, epoch: int,
                   pool: Optional[Executor] = None,
-                  shard: Optional[range] = None
+                  shard: Optional[range] = None,
+                  crop_hw: Tuple[int, int] = CROP_HW,
+                  augment: bool = DataConfig.augment_train
                   ) -> Iterator[Dict[str, torch.Tensor]]:
-    """One epoch of augmented, balanced-sampled training batches (``shard``
-    of each, see ``Vimeo90KDataset``)."""
-    ds = Vimeo90KDataset(root, paths, batch_size, augment=True,
-                         seed=epoch_seed(seed, epoch), pool=pool, shard=shard)
-    return prefetch((to_tensors(b) for b in ds.batches(num_batches)), 2)
+    """One epoch of balanced-sampled training batches, augmented unless
+    ``augment`` is false (``shard`` of each, see ``Vimeo90KDataset``)."""
+    ds = Vimeo90KDataset(root, paths, batch_size, augment=augment,
+                         seed=epoch_seed(seed, epoch), crop_hw=crop_hw,
+                         pool=pool, shard=shard)
+    return prefetch(ds.batches(num_batches), 2)
 
 
 def val_batches(root: str, paths: Sequence[str], batch_size: int,
                 num_batches: int, pool: Optional[Executor] = None,
-                shard: Optional[range] = None
+                shard: Optional[range] = None,
+                crop_hw: Tuple[int, int] = CROP_HW
                 ) -> Iterator[Dict[str, torch.Tensor]]:
     """The first ``num_batches`` validation batches, in order, unaugmented
     (``shard`` of each)."""
-    ds = Vimeo90KDataset(root, paths, batch_size, augment=False, pool=pool,
-                         shard=shard)
-    return prefetch((to_tensors(b)
-                     for b in ds.batches(num_batches, sequential=True)), 2)
+    ds = Vimeo90KDataset(root, paths, batch_size, augment=False,
+                         crop_hw=crop_hw, pool=pool, shard=shard)
+    return prefetch(ds.batches(num_batches, sequential=True), 2)

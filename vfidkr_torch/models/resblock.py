@@ -81,3 +81,9 @@ class MultipleBasicBlock(nn.Module):
             h = fused_resblocks(h, self.trunk_weights())
             return self.block5(h).contiguous()
         return self.block5(h)
+
+
+def multiple_basic_block_4(intermediate: int = 128) -> MultipleBasicBlock:
+    """The reference's ``MultipleBasicBlock_4``, DAIN's rectifier
+    (``vfidkr_tpu/models/resblock.py:93``)."""
+    return MultipleBasicBlock(intermediate=intermediate)

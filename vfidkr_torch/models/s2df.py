@@ -45,3 +45,8 @@ class S2DF(nn.Module):
         for i in range(2, 2 + len(DILATIONS)):
             feats.append(self._modules[f"block{i}"](feats[-1]))
         return torch.cat([x] + [f.float() for f in feats[1:]], 1)
+
+
+def s2df_3dense() -> S2DF:
+    """The reference's ``S2DF_3dense`` (``vfidkr_tpu/models/s2df.py:58``)."""
+    return S2DF()

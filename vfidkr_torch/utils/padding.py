@@ -11,8 +11,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from vfidkr_torch.config import EvalConfig
 
-def pad_to_multiple(x: torch.Tensor, multiple: int = 128, min_pad: int = 32
+
+def pad_to_multiple(x: torch.Tensor,
+                    multiple: int = EvalConfig.pad_multiple,
+                    min_pad: int = EvalConfig.min_pad
                     ) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
     """(B,C,H,W) -> (padded, (left, right, top, bottom)).
 
