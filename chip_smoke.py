@@ -3063,14 +3063,15 @@ def phase_trace(dev: torch.device, card: str) -> None:
     """vfidkr_torch.utils.trace around a DAIN eval forward on the card: its
     Chrome trace holds the card's kernels, K1-K3 among them (run last: a
     profiler session slows host-bound timings after it)."""
-    from vfidkr_torch.utils import Timer, trace
+    from vfidkr_torch.utils import trace
     model = DAIN(generator=torch.Generator().manual_seed(0)).to(dev).eval()
     x0, x1 = (torch.rand(1, 3, H, W, device=dev) for _ in range(2))
-    timer = Timer()
     with tempfile.TemporaryDirectory(prefix="vfidkr_trace_") as tmp:
-        with torch.inference_mode(), trace(tmp), timer:
+        t0 = time.perf_counter()
+        with torch.inference_mode(), trace(tmp):
             model(x0, x1)
             torch.cuda.synchronize()
+        section_s = time.perf_counter() - t0
         files = list(Path(tmp).glob("*.pt.trace.json"))
         events = json.loads(files[0].read_text())["traceEvents"]
     kernels_seen = {e.get("name", "") for e in events
@@ -3080,7 +3081,7 @@ def phase_trace(dev: torch.device, card: str) -> None:
                       "flow_project_finalize")}
     print(f"[trace] {card}: utils.trace wrote {files[0].name} with "
           f"{len(kernels_seen)} distinct device kernels; K1-K3 among them: "
-          f"{ours}; the section took {timer.meter.val * 1000:.1f} ms with "
+          f"{ours}; the section took {section_s * 1000:.1f} ms with "
           f"the profiler on")
     if not all(ours.values()):
         raise AssertionError(f"the trace lacks device events of K1-K3: "

@@ -5,7 +5,7 @@ against the JAX package's: ``models.build_model`` / ``MODEL_REGISTRY`` and
 the weight converter; the tolerances of tests/test_torch_models.py and
 tests/test_torch_slowmotion_parts.py), ``DataConfig`` / ``EvalConfig`` /
 ``Config`` field by field and as the source of the defaults the loader, the
-trainer and the eval apps use, ``Timer`` and ``trace``.
+trainer and the eval apps use, and ``trace``.
 """
 import dataclasses
 import json
@@ -23,7 +23,7 @@ import vfidkr_tpu.models as JM  # noqa: E402
 import vfidkr_torch.config as C  # noqa: E402
 import vfidkr_torch.models as M  # noqa: E402
 from vfidkr_torch.convert import load_jax_variables  # noqa: E402
-from vfidkr_torch.utils import Timer, trace  # noqa: E402
+from vfidkr_torch.utils import trace  # noqa: E402
 
 H = W = 32
 
@@ -174,19 +174,6 @@ def test_defaults_in_use_are_the_configs():
                  interpolate_video.build_parser().parse_args(
                      ["--frames-dir", "f", "--out-dir", "o"])):
         assert args.save_which == ev.save_which
-
-
-def test_timer_counts_sections():
-    timer = Timer()
-    for _ in range(3):
-        with timer:
-            sum(range(1000))
-    assert timer.meter.weight == 3
-    assert 0 < timer.meter.avg < 1 and timer.meter.val > 0
-    with pytest.raises(KeyError):
-        with timer:
-            raise KeyError("the section's error propagates")
-    assert timer.meter.weight == 4
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -73,6 +73,7 @@ from vfidkr_torch.config import (NET_NAMES, EvalConfig, ModelConfig,
 from vfidkr_torch.data.vimeo90k import prefetch
 from vfidkr_torch.utils import pad_to_multiple, unpad
 from vfidkr_torch.utils.image_io import read_rgb, write_png
+from vfidkr_torch.utils.profiling import span
 
 FRAME_EXTS = (".png", ".jpg", ".jpeg")
 
@@ -148,10 +149,11 @@ def pad_rule(spatial_shards: int = 1) -> tuple[int, int]:
 def to_input(frame: np.ndarray, device, spatial_shards: int = 1):
     """(H, W, 3) uint8 -> ((1, 3, H', W') float32 on ``device``, pads): the
     value of JAX's ``frame / 255.0``, replication-padded for the model."""
-    x = torch.from_numpy(frame).to(device).permute(2, 0, 1)[None]
-    multiple, min_pad = pad_rule(spatial_shards)
-    return pad_to_multiple(x.contiguous().float() / 255.0, multiple=multiple,
-                           min_pad=min_pad)
+    with span("vfidkr/driver/to_input"):
+        x = torch.from_numpy(frame).to(device).permute(2, 0, 1)[None]
+        multiple, min_pad = pad_rule(spatial_shards)
+        return pad_to_multiple(x.contiguous().float() / 255.0,
+                               multiple=multiple, min_pad=min_pad)
 
 
 def sharded_forward(model: torch.nn.Module, spatial_shards: int, halo: int,
@@ -183,11 +185,12 @@ def frames_between(model, a: torch.Tensor, b: torch.Tensor,
     sharded forward of it (``sharded_forward``)."""
     with torch.inference_mode():
         outs = model(a, b)["outputs"][save_which]
-        if not isinstance(outs, (list, tuple)):
-            outs = [outs]
-        frames = torch.cat([unpad(o, pads) for o in outs]).clamp(0.0, 1.0)
-        return torch.round(frames * 255.0).to(torch.uint8).permute(
-            0, 2, 3, 1).contiguous()
+        with span("vfidkr/driver/finish"):
+            if not isinstance(outs, (list, tuple)):
+                outs = [outs]
+            frames = torch.cat([unpad(o, pads) for o in outs]).clamp(0.0, 1.0)
+            return torch.round(frames * 255.0).to(torch.uint8).permute(
+                0, 2, 3, 1).contiguous()
 
 
 def _save(path: str, frame: np.ndarray) -> float:

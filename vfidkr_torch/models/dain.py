@@ -15,8 +15,13 @@ as ``FlowProjectionLayer.py:23`` fills only when no gradient is wanted):
 7. the 45-channel rectifier, added to ``cur``.
 
 Batching both directions means each CUDA kernel launches once per forward
-(the hole fill's only in eval) and once per backward.  The children carry
-the reference checkpoint's names (``initScaleNets_filter``,
+(the hole fill's only in eval) and once per backward.  The forward runs in
+the profiler span ``vfidkr/forward``, each of its ops in one stage span,
+``vfidkr/<stage>`` for depth, context, kernel_unet, flow, upsample,
+projection, filter_warp and rectifier (``utils.profiling.span``; the
+per-step stages once a step), and the backward of each trained stage in
+``vfidkr/<stage>/backward``.  The children carry the reference checkpoint's
+names (``initScaleNets_filter``,
 ``initScaleNets_filter1/2``, ``flownets``, ``rectifyNet``; DAIN_slowmotion
 adds ``ctxNet`` and ``depthNet``).
 
@@ -57,6 +62,7 @@ from vfidkr_torch.models.resblock import MultipleBasicBlock
 from vfidkr_torch.models.s2df import S2DF
 from vfidkr_torch.ops import (depth_flow_project, filter_interpolate,
                               flow_project)
+from vfidkr_torch.utils.profiling import span
 
 DIV_FLOW = 20.0
 TIMESTEP = 0.5
@@ -109,25 +115,34 @@ class DAIN(nn.Module):
         Returns ``{"outputs": [cur_output, rectified], "offsets": [off0,
         off1], "filters": [filt0, filt1]}``."""
         b = i0.shape[0]
-        trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
-        filt0 = self.initScaleNets_filter1(trunk).float()
-        filt1 = self.initScaleNets_filter2(trunk).float()
-
-        raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
-        flows = upsample_bilinear(
-            torch.cat([raw_fwd, raw_bwd], 0) * (DIV_FLOW * TIMESTEP), 4)
-
-        offs = flow_project(flows, hole_fill=not self.training)
-        off0, off1 = offs[:b], offs[b:]
-
-        refs = filter_interpolate(torch.cat([i0, i2], 0), offs,
-                                  torch.cat([filt0, filt1], 0))
-        ref0, ref2 = refs[:b], refs[b:]
-        cur_output = ref0 / 2.0 + ref2 / 2.0
-
-        rectify_input = torch.cat(
-            [cur_output, ref0, ref2, off0, off1, filt0, filt1], 1)
-        rectified = self.rectifyNet(rectify_input).float() + cur_output
+        with span("vfidkr/forward"):
+            with span("vfidkr/kernel_unet") as s:
+                trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
+                filt0 = self.initScaleNets_filter1(trunk).float()
+                filt1 = self.initScaleNets_filter2(trunk).float()
+                s.outputs(filt0, filt1)
+            with span("vfidkr/flow") as s:
+                raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
+                s.outputs(raw_fwd, raw_bwd)
+            with span("vfidkr/upsample") as s:
+                flows = upsample_bilinear(torch.cat(
+                    [raw_fwd, raw_bwd], 0) * (DIV_FLOW * TIMESTEP), 4)
+                s.outputs(flows)
+            with span("vfidkr/projection") as s:
+                offs = flow_project(flows, hole_fill=not self.training)
+                off0, off1 = offs[:b], offs[b:]
+                s.outputs(offs, off0, off1)
+            with span("vfidkr/filter_warp") as s:
+                refs = filter_interpolate(torch.cat([i0, i2], 0), offs,
+                                          torch.cat([filt0, filt1], 0))
+                ref0, ref2 = refs[:b], refs[b:]
+                cur_output = ref0 / 2.0 + ref2 / 2.0
+                s.outputs(ref0, ref2, cur_output)
+            with span("vfidkr/rectifier") as s:
+                rectify_input = torch.cat(
+                    [cur_output, ref0, ref2, off0, off1, filt0, filt1], 1)
+                rectified = self.rectifyNet(rectify_input).float() + cur_output
+                s.outputs(rectified)
         return {"outputs": [cur_output, rectified],
                 "offsets": [off0, off1],
                 "filters": [filt0, filt1]}
@@ -197,34 +212,51 @@ class DAINSlowMotion(nn.Module):
         [off0, off1], "filters": [filt0, filt1]}``: a list of one frame per
         step each, and the last step's offsets."""
         b = i0.shape[0]
-        frames = torch.cat([i0, i2], 0)
-        log_depth = self.depthNet(frames)
-        depth_inv = depth_inv_from_log_depth(log_depth)
-        ctx = torch.cat([self.ctxNet(frames), log_depth.detach()], 1)
+        with span("vfidkr/forward"):
+            with span("vfidkr/depth"):
+                frames = torch.cat([i0, i2], 0)
+                log_depth = self.depthNet(frames)
+                depth_inv = depth_inv_from_log_depth(log_depth)
+            with span("vfidkr/context"):
+                ctx = torch.cat([self.ctxNet(frames), log_depth.detach()], 1)
+            with span("vfidkr/kernel_unet") as s:
+                trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
+                filt0 = self.initScaleNets_filter1(trunk).float()
+                filt1 = self.initScaleNets_filter2(trunk).float()
+                filt = torch.cat([filt0, filt1], 0)
+                s.outputs(filt0, filt1, filt)
+            with span("vfidkr/flow") as s:
+                raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
+                s.outputs(raw_fwd, raw_bwd)
 
-        trunk = self.initScaleNets_filter(torch.cat([i0, i2], 1))
-        filt0 = self.initScaleNets_filter1(trunk).float()
-        filt1 = self.initScaleNets_filter2(trunk).float()
-        filt = torch.cat([filt0, filt1], 0)
-        raw_fwd, raw_bwd = self.flownets.bidirectional(i0, i2)
-
-        steps = [k * self.timestep for k in range(1, 1 + self.num_frames)]
-        outputs, rectified = [], []
-        for t, t_rev in zip(steps, steps[::-1]):
-            flows = upsample_bilinear(torch.cat(
-                [raw_fwd * (DIV_FLOW * t), raw_bwd * (DIV_FLOW * t_rev)], 0), 4)
-            offs = depth_flow_project(flows, depth_inv,
-                                      hole_fill=not self.training)
-            off0, off1 = offs[:b], offs[b:]
-            ctx_w = filter_interpolate(ctx, offs.detach(), filt.detach())
-            refs = filter_interpolate(frames, offs, filt)
-            ref0, ref2 = refs[:b], refs[b:]
-            out = ref0 * (1.0 - t) + ref2 * t
-            rectify_input = torch.cat(
-                [out, ref0, ref2, off0, off1, filt0, filt1, ctx_w[:b],
-                 ctx_w[b:]], 1)
-            outputs.append(out)
-            rectified.append(self.rectifyNet(rectify_input).float() + out)
+            steps = [k * self.timestep for k in range(1, 1 + self.num_frames)]
+            outputs, rectified = [], []
+            for t, t_rev in zip(steps, steps[::-1]):
+                with span("vfidkr/upsample") as s:
+                    flows = upsample_bilinear(torch.cat(
+                        [raw_fwd * (DIV_FLOW * t),
+                         raw_bwd * (DIV_FLOW * t_rev)], 0), 4)
+                    s.outputs(flows)
+                with span("vfidkr/projection") as s:
+                    offs = depth_flow_project(flows, depth_inv,
+                                              hole_fill=not self.training)
+                    off0, off1 = offs[:b], offs[b:]
+                    s.outputs(offs, off0, off1)
+                with span("vfidkr/filter_warp") as s:
+                    ctx_w = filter_interpolate(ctx, offs.detach(),
+                                               filt.detach())
+                    refs = filter_interpolate(frames, offs, filt)
+                    ref0, ref2 = refs[:b], refs[b:]
+                    out = ref0 * (1.0 - t) + ref2 * t
+                    s.outputs(ref0, ref2, out)
+                with span("vfidkr/rectifier") as s:
+                    rectify_input = torch.cat(
+                        [out, ref0, ref2, off0, off1, filt0, filt1, ctx_w[:b],
+                         ctx_w[b:]], 1)
+                    outputs.append(out)
+                    rectified.append(
+                        self.rectifyNet(rectify_input).float() + out)
+                    s.outputs(rectified[-1])
         return {"outputs": [outputs, rectified],
                 "offsets": [off0, off1],
                 "filters": [filt0, filt1]}

@@ -15,6 +15,12 @@ checkpoint (``conv1a.0.weight`` ... ``dc_conv7.weight``).  The reference's
 - the output flow is at 1/4 of the input resolution and 1/20 of the pixel
   flow.
 
+Its four parts run in profiler spans (``utils.profiling.span``):
+``vfidkr/flow/pyramid``, and per level ``vfidkr/flow/cost_volume`` (the
+warp and the correlation) and ``vfidkr/flow/decoder`` (the dense block, the
+flow head and the deconvs that feed the next level), then
+``vfidkr/flow/refine`` (the dilated context network and the final add).
+
 Init: kaiming normal (fan_in) on every conv and deconv, zero bias.
 """
 
@@ -25,6 +31,7 @@ from torch import nn
 
 from vfidkr_torch.models.layers import conv, deconv, leaky_relu
 from vfidkr_torch.ops import correlation_cost_volume, pwc_warp
+from vfidkr_torch.utils.profiling import span
 
 MD = 4                          # cost-volume max displacement
 _DENSE = (128, 128, 96, 64, 32)
@@ -99,31 +106,42 @@ class PWCDCNet(nn.Module):
         return x
 
     def _decode(self, pyr1, pyr2):
-        x = self._dense(6, self._corr(pyr1[5], pyr2[5]))
-        flow = self.predict_flow6(x)
+        with span("vfidkr/flow/cost_volume"):
+            x = self._corr(pyr1[5], pyr2[5])
+        with span("vfidkr/flow/decoder"):
+            x = self._dense(6, x)
+            flow = self.predict_flow6(x)
+            up_flow, up_feat = self.deconv6(flow), self.upfeat6(x)
         for lvl in (5, 4, 3, 2):
-            up_flow = getattr(self, f"deconv{lvl + 1}")(flow)
-            up_feat = getattr(self, f"upfeat{lvl + 1}")(x)
             f1, f2 = pyr1[lvl - 1], pyr2[lvl - 1]
-            warped = pwc_warp(f2, up_flow * _WARP_SCALE[lvl])
-            x = self._dense(lvl, torch.cat(
-                [self._corr(f1, warped), f1, up_flow, up_feat], 1))
-            flow = getattr(self, f"predict_flow{lvl}")(x)
-        ctx = x
-        for i in range(1, 7):
-            ctx = getattr(self, f"dc_conv{i}")(ctx)
-        return flow + self.dc_conv7(ctx)
+            with span("vfidkr/flow/cost_volume"):
+                corr = self._corr(f1, pwc_warp(f2, up_flow * _WARP_SCALE[lvl]))
+            with span("vfidkr/flow/decoder"):
+                x = self._dense(lvl, torch.cat([corr, f1, up_flow, up_feat],
+                                               1))
+                flow = getattr(self, f"predict_flow{lvl}")(x)
+                if lvl > 2:
+                    up_flow = getattr(self, f"deconv{lvl}")(flow)
+                    up_feat = getattr(self, f"upfeat{lvl}")(x)
+        with span("vfidkr/flow/refine"):
+            ctx = x
+            for i in range(1, 7):
+                ctx = getattr(self, f"dc_conv{i}")(ctx)
+            return flow + self.dc_conv7(ctx)
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor) -> torch.Tensor:
-        return self._decode(self._pyramid(im1), self._pyramid(im2))
+        with span("vfidkr/flow/pyramid"):
+            pyr1, pyr2 = self._pyramid(im1), self._pyramid(im2)
+        return self._decode(pyr1, pyr2)
 
     def bidirectional(self, im1: torch.Tensor, im2: torch.Tensor):
         """Flows im1->im2 and im2->im1, as ``forward`` gives them, with the
         pyramid run once over both frames and both directions decoded as
         one batch of 2B."""
         b = im1.shape[0]
-        pyr = self._pyramid(torch.cat([im1, im2], 0))
-        # batch order (im1, im2) decodes forward; swapped, backward
-        swapped = [torch.cat([c[b:], c[:b]], 0) for c in pyr]
+        with span("vfidkr/flow/pyramid"):
+            pyr = self._pyramid(torch.cat([im1, im2], 0))
+            # batch order (im1, im2) decodes forward; swapped, backward
+            swapped = [torch.cat([c[b:], c[:b]], 0) for c in pyr]
         flow = self._decode(pyr, swapped)
         return flow[:b], flow[b:]

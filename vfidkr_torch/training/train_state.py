@@ -11,6 +11,12 @@ DAIN_slowmotion's context and depth nets: they are ``FROZEN``, JAX's
 parameter belongs to one of the three groups.  The plateau schedule's
 ``scale`` multiplies every group's rate, as ReduceLROnPlateau reduces every
 group by the same factor.
+
+``train_step``'s phases run in the profiler spans ``vfidkr/train/zero_grad``,
+``vfidkr/train/loss`` (the loss terms, whose backward is
+``vfidkr/train/loss/backward``), ``vfidkr/train/backward`` and
+``vfidkr/train/optimizer`` (``utils.profiling.span``); the model's forward
+has its own.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from vfidkr_torch.training import loss as L
+from vfidkr_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,16 +95,21 @@ def _model_losses(model, batch, config: TrainConfig):
     regularisers and the PSNR read the last frame, as JAX's
     (``vfidkr_tpu/training/train_state.py:119-133``)."""
     res = model(batch["x0"], batch["x1"])
-    frames = [o if isinstance(o, list) else [o] for o in res["outputs"]]
-    diffs = [[o - batch["y"] for o in outs] for outs in frames]
-    _, offset, sym = L.part_loss([ds[-1] for ds in diffs], res["offsets"],
-                                 [batch["x0"], batch["x1"]], config.epsilon)
-    pixel = [sum(L.charbonnier_loss(d, config.epsilon) for d in ds) / len(ds)
-             for ds in diffs]
-    diffs = [ds[-1] for ds in diffs]
-    total = L.total_loss(pixel, config.alpha)
-    metrics = {"pixel": torch.stack(pixel), "tv": offset[0], "sym": sym[0],
-               "total": total, "psnr": L.psnr_from_diff(diffs[-1])}
+    with span("vfidkr/train/loss") as s:
+        frames = [o if isinstance(o, list) else [o] for o in res["outputs"]]
+        diffs = [[o - batch["y"] for o in outs] for outs in frames]
+        _, offset, sym = L.part_loss([ds[-1] for ds in diffs],
+                                     res["offsets"],
+                                     [batch["x0"], batch["x1"]],
+                                     config.epsilon)
+        pixel = [sum(L.charbonnier_loss(d, config.epsilon) for d in ds)
+                 / len(ds) for ds in diffs]
+        diffs = [ds[-1] for ds in diffs]
+        total = L.total_loss(pixel, config.alpha)
+        metrics = {"pixel": torch.stack(pixel), "tv": offset[0],
+                   "sym": sym[0], "total": total,
+                   "psnr": L.psnr_from_diff(diffs[-1])}
+        s.outputs(total)
     return total, metrics
 
 
@@ -113,13 +125,16 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     stay in ``p.grad`` until the next step.  Returns the detached metrics:
     pixel (one per output), tv, sym, total, psnr."""
     model.train()
-    set_lr_scale(optimizer, scale)
-    optimizer.zero_grad(set_to_none=True)
+    with span("vfidkr/train/zero_grad"):
+        set_lr_scale(optimizer, scale)
+        optimizer.zero_grad(set_to_none=True)
     total, metrics = _model_losses(model, batch, config)
-    total.backward()
-    if reduce_grads is not None:
-        reduce_grads(model)
-    optimizer.step()
+    with span("vfidkr/train/backward"):
+        total.backward()
+        if reduce_grads is not None:
+            reduce_grads(model)
+    with span("vfidkr/train/optimizer"):
+        optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
 
