@@ -25,16 +25,17 @@ session comes last (7), since host-bound timings read slower after one:
    use, one nvcc per source, all at once) and loads the library;
 3. slice: DAIN eval at full width from seeded random weights, frames
    (1,3,256,448) on the 8-bit grid; each forward kernel's counter must rise
-   by exactly 1 in one forward; the outputs are held to the same model run
-   on the CPU, where every op takes its plain version; its ms/frame (CUDA
+   by exactly 1 in one forward (K8, the rectifier's float32 head, too); the
+   outputs are held to the same model run on the CPU, where every op takes
+   its plain version; its ms/frame (CUDA
    events, median of 50 after 10 warm-up forwards);
 4. slowmo: DAINSlowMotion(0.25) at full width, the same frames, 3 frames a
-   pair; one forward launches K1, K7, K2 and K3 exactly 3 times each; the
+   pair; one forward launches K1, K7, K2, K3 and K8 exactly 3 times each; the
    outputs are held to the same model on the CPU; ms per forward and per
    synthesised frame (median of 50 after 10 warm-up), peak memory;
 5. train: DAIN().train() at full width, B=3 triplets of 256x448 made in
-   memory; 5 train steps, each launching the forward kernels and the
-   backward kernels once and the hole fill never, with a finite loss and
+   memory; 5 train steps, each launching the forward kernels (K8 too) and
+   the backward kernels once and the hole fill never, with a finite loss and
    every Adamax group moved; one eval step (hole fill, no backward kernel);
    one train step's gradients held to the same step on the CPU, per leaf;
    the train step's time (median of 20 after 5 warm-up) and peak memory;
@@ -137,7 +138,9 @@ session comes last (7), since host-bound timings read slower after one:
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
-   and (3,128,320,448), and checked at the ragged (2,128,37,75)), with the
+   and (3,128,320,448), and checked at the ragged (2,128,37,75); K8, the
+   float32 rectifier head, at the cells' (1,45,320,512) and (1,437,768,1344),
+   against float64 and launched twice bit for bit), with the
    tolerance stated; K7 also on the paths' near-uniform move, across a sharp
    flow discontinuity, at C = 9, 37 and 200 and at the ragged 37x75 and
    37x76, each with the number of its tiles that took the direct gather; K1
@@ -163,7 +166,9 @@ session comes last (7), since host-bound timings read slower after one:
    pixel's four cells (for the depth projection, over the prebuilt field:
    the four-cell sum only); each case's time per call
    with the wrapper and its plain version's (CUDA events), K4's also beside
-   its yardstick, the same six convs as bf16 cuDNN calls, K2's beside
+   its yardstick, the same six convs as bf16 cuDNN calls, K8's beside
+   cuDNN's float32 relu(conv2d) with cudnn.benchmark on (its plain version
+   is the same call with it off), K2's beside
    index_add_, each yardstick's also on the device; and its bound: the
    larger of its bytes (each input read once, each output written once) at
    3.35 TB/s and its operations at 67 TFLOP/s float32 (989 TFLOP/s bf16
@@ -213,6 +218,7 @@ from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP, VESTIGIAL
 from vfidkr_torch.models.layers import upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
+from vfidkr_torch.ops import conv_head as CH
 from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.ops import rectify as RB
@@ -248,6 +254,10 @@ BF16_FLOP_S = 989e12            # H100 SXM bf16, tensor cores, dense
 K4_SHAPES = ((1, 128, H, W), (1, 128, 512, 704), (3, 128, 320, 448))
 K4_RAGGED = (2, 128, 37, 75)
 K4_TOL = 2.0 ** -6              # two bf16 ulps, see _compare_k4
+# K8's shapes: DAIN's head at cell 1's 512x320 and the slow-motion head at
+# 1344x768; its tolerance, see _compare_k8
+K8_SHAPES = ((1, 45, 320, 512), (1, 437, 768, 1344))
+K8_TOL = 2e-6
 # The bf16 lane against the float32 lane on the rectified frame.  JAX's own
 # lane is max 0.035, mean 0.0076, 40.3 dB off its float32 forward at 64x64
 # on these tamed weights (tests/torch_lane.py); allowed here: 2.5x its
@@ -750,6 +760,21 @@ def phase_kernels(dev: torch.device) -> dict:
              library=lambda x=x_cl, w6=w6: cudnn_chain(x, w6),
              library_name="the bf16 cuDNN chain")
 
+    # the float32 lane's rectifier head, K8: its plain version on the card
+    # is cuDNN's float32 relu(conv2d) as the model ran it before (benchmark
+    # off); the yardstick the same call with cudnn.benchmark on
+    for shape in K8_SHAPES:
+        x, wt, b = (t.to(dev) for t in _head_inputs(g, shape))
+        err = _compare_k8(shape, x, wt, b)
+        n, c, h, w = shape
+        case(f"K8 {shape}", "rectify_head",
+             lambda a=(x, wt, b): CH.rectify_head(*a),
+             lambda a=(x, wt, b): CH.rectify_head_plain(*a), err,
+             _nbytes(x, wt, b) + n * CH.CO * h * w * 4,
+             2 * CH.KSIZE ** 2 * c * CH.CO * n * h * w,
+             library=lambda a=(x, wt, b): cudnn_head_benchmarked(*a),
+             library_name="cuDNN relu(conv2d), cudnn.benchmark on")
+
     # the video phase's frame, 1344x768 (1280x720 padded), under the paths'
     # move: K1 on the frames, K7 on the context, K2 depth-weighted, K3 and
     # K4; compared, not timed (the video phase times the video driver); own
@@ -929,6 +954,53 @@ def cudnn_chain(x, w6):
     return h
 
 
+def _head_inputs(g: torch.Generator, shape):
+    """The rectifier head's input in [-1, 1), weights at its init (normal,
+    std sqrt(2 / (49 C))) and a bias of +-0.01."""
+    n, c, h, w = shape
+    x = torch.rand(n, c, h, w, generator=g) * 2 - 1
+    wt = torch.randn(CH.CO, c, 7, 7, generator=g) * (2.0 / (49 * c)) ** 0.5
+    return x, wt, torch.randn(CH.CO, generator=g) * 0.01
+
+
+def cudnn_head_benchmarked(x, wt, b):
+    """K8's yardstick: cuDNN's float32 relu(conv2d) with cudnn.benchmark on
+    (its choice among algorithms, made on the first call of a shape)."""
+    torch.backends.cudnn.benchmark = True
+    try:
+        return F.relu(F.conv2d(x, wt, b, padding=CH.PAD))
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+
+def _compare_k8(shape, x, wt, b) -> float:
+    """K8 against float64 and against its plain version on the card: each
+    value's error over the float64 sum of |x||w| + |b| (what a float32 sum
+    of its terms rounds within) at most K8_TOL against float64 (float32
+    sums read 2.6-4.2e-7, TF32 products 1e-4 and more) and 2 K8_TOL
+    against the plain version (cuDNN's float32 sum, in its own order); two
+    launches bit for bit.  Returns max |kernel - plain|."""
+    got, again = CH.rectify_head(x, wt, b), CH.rectify_head(x, wt, b)
+    plain = CH.rectify_head_plain(x, wt, b)
+    xd, wd, bd = x.double(), wt.double(), b.double()
+    want = F.relu(F.conv2d(xd, wd, bd, padding=CH.PAD))
+    scale = F.conv2d(xd.abs(), wd.abs(), bd.abs(), padding=CH.PAD)
+    rel = ((got.double() - want).abs() / scale).max().item()
+    rel_plain = ((plain.double() - want).abs() / scale).max().item()
+    rel_apart = ((got.double() - plain.double()).abs() / scale).max().item()
+    del xd, want, scale
+    err = (got - plain).abs().max().item()
+    same = torch.equal(got, again)
+    print(f"[kernels] rectify_head K8 {shape}: error over sum |x||w| + |b| "
+          f"{rel:.3e} against float64 (tolerance {K8_TOL:.0e}; the plain "
+          f"version's {rel_plain:.3e}), {rel_apart:.3e} against the plain "
+          f"version (tolerance {2 * K8_TOL:.0e}); max |kernel - plain| "
+          f"{err:.3e}; two launches {'bit-equal' if same else 'DIFFER'}")
+    if not (rel <= K8_TOL and rel_apart <= 2 * K8_TOL and same):
+        raise AssertionError(f"rectify_head {shape}: failed its check")
+    return err
+
+
 def _compare_k4(shape, x, w6) -> float:
     """K4 against its plain version, per launch and per call.
 
@@ -993,6 +1065,14 @@ def _compare_grad(name, got, want) -> float:
     if not err <= tol:
         raise AssertionError(f"{name}: {err} exceeds {tol}")
     return err
+
+
+def _check_head_launches(path, launched, want) -> None:
+    """K8 (``ops.conv_head``, not one of ``kernels.KERNELS``) launched
+    ``want`` times: once a float32 rectifier call."""
+    if launched != want:
+        raise AssertionError(f"rectify_head launched {launched} times in one "
+                             f"{path}, expected {want}")
 
 
 def _check_launches(path, launches, want_counts=None) -> None:
@@ -1086,11 +1166,14 @@ def phase_slice(dev: torch.device):
 
     with torch.inference_mode():
         kernels.reset_launches()
+        heads = CH.LAUNCHES
         out = model(i0d, i2d)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-    print(f"[slice] launches in one DAIN eval forward: {launches}")
+    print(f"[slice] launches in one DAIN eval forward: {launches}, "
+          f"rectify_head {CH.LAUNCHES - heads}")
     _check_launches("eval_forward", launches)
+    _check_head_launches("DAIN eval forward", CH.LAUNCHES - heads, 1)
     _check_finite(out)
     rect = out["outputs"][1]
     if tuple(rect.shape) != (1, 3, H, W):
@@ -1152,9 +1235,12 @@ def phase_slowmo(dev: torch.device):
     i0d, i2d = i0.to(dev), i2.to(dev)
     with torch.inference_mode():
         kernels.reset_launches()
+        heads = CH.LAUNCHES
         out = model(i0d, i2d)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
+        _check_head_launches("slow-motion forward", CH.LAUNCHES - heads,
+                             round(1 / SLOWMO_T) - 1)
         depth_inv = depth_inv_from_log_depth(
             model.depthNet(torch.cat([i0d, i2d], 0)))
     print(f"[slowmo] launches in one DAINSlowMotion({SLOWMO_T}) forward: "
@@ -1359,10 +1445,13 @@ def _train_steps(tag, path, model, opt, batch) -> dict:
         before = {name: [p.detach().clone() for p in grp["params"]]
                   for name, grp in zip(GROUPS, opt.param_groups)}
         kernels.reset_launches()
+        heads = CH.LAUNCHES
         m = train_step(model, opt, batch, config)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         _check_launches(path, launches)
+        # one rectifier call a step: DAIN, and DAINSlowMotion at t = 0.5
+        _check_head_launches(f"{tag} step", CH.LAUNCHES - heads, 1)
         total = float(m["total"])
         if not math.isfinite(total):
             raise AssertionError(f"train step {step}: loss {total}")

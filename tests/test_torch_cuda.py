@@ -400,6 +400,7 @@ def test_dain_train_step_cuda_matches_cpu(dev):
     import copy
     from vfidkr_torch import kernels
     from vfidkr_torch.models import DAIN
+    from vfidkr_torch.models.dain import VESTIGIAL
     from vfidkr_torch.training import TrainConfig, make_optimizer, train_step
     g = torch.Generator().manual_seed(5)
     model = DAIN(generator=g)
@@ -428,6 +429,10 @@ def test_dain_train_step_cuda_matches_cpu(dev):
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
     for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        if b.grad is None:
+            # the vestigial children (init_unused) take no part in the step
+            assert a.grad is None and name.startswith(VESTIGIAL), name
+            continue
         scale = max(a.grad.abs().max().item(), b.grad.abs().max().item(),
                     1e-12)
         torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=5e-3,
@@ -704,3 +709,118 @@ def test_dain_bf16_launches_fused_resblocks(dev):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()
         assert d.mean().item() <= 0.02 and d.max().item() <= 0.25
+
+
+# K8, the float32 rectifier head: each value against float64, its error over
+# the float64 sum of |x||w| + |b| (the scale a float32 sum of those terms
+# rounds within).  Float32 sums read 2.6e-7 to 4.2e-7 at these shapes; TF32
+# products would read 1e-4 and more.
+HEAD_TOL = 2e-6
+
+
+def _head_inputs(n, c, h, w, seed=12):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, c, h, w, generator=g) * 2 - 1
+    wt = torch.randn(128, c, 7, 7, generator=g) * (2.0 / (49 * c)) ** 0.5
+    b = torch.randn(128, generator=g) * 0.01
+    return x, wt, b
+
+
+@pytest.mark.parametrize("n,c,h,w", [
+    (1, 45, 320, 512), (3, 45, 256, 448), (1, 437, 768, 1344),
+    (1, 13, 64, 192), (2, 5, 37, 75)])
+def test_rectify_head_kernel(dev, n, c, h, w):
+    """K8 at DAIN's head (C = 45, cells 1 and 3), the slow-motion head
+    (C = 437 at 1344 x 768), C = 13 and a frame off the 8 x 32 tile
+    (37 x 75, W % 4 != 0); two launches give the same bits."""
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import conv_head as CH
+    x, wt, b = (t.to(dev) for t in _head_inputs(n, c, h, w))
+    before, others = CH.LAUNCHES, dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = CH.rectify_head(x, wt, b)
+        again = CH.rectify_head(x, wt, b)
+    torch.cuda.synchronize()
+    assert CH.LAUNCHES == before + 2 and kernels.LAUNCHES == others
+    assert got.shape == (n, 128, h, w) and got.is_contiguous()
+    assert torch.equal(got, again)
+    xd, wd, bd = x.double(), wt.double(), b.double()
+    want = F.relu(F.conv2d(xd, wd, bd, padding=3))
+    scale = F.conv2d(xd.abs(), wd.abs(), bd.abs(), padding=3)
+    err = ((got.double() - want).abs() / scale).max().item()
+    assert err <= HEAD_TOL, err
+    assert bool((got == 0).any()) and bool((got > 0).any())
+
+
+def test_rectifier_launches_rectify_head_once(dev):
+    """One float32 rectifier call launches K8 once, with no grad and under
+    autograd, and nothing of ``kernels.KERNELS``; its output is the CPU
+    run's within 1e-5 x max(1, max |CPU|)."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models.resblock import MultipleBasicBlock
+    from vfidkr_torch.ops import conv_head as CH
+    cpu = MultipleBasicBlock(45, 128,
+                             generator=torch.Generator().manual_seed(13))
+    x = torch.rand(2, 45, 64, 128, generator=torch.Generator().manual_seed(14))
+    with torch.no_grad():
+        want = cpu(x)
+    m = MultipleBasicBlock(45, 128).to(dev)
+    m.load_state_dict(cpu.state_dict())
+    others = dict(kernels.LAUNCHES)
+    before = CH.LAUNCHES
+    with torch.inference_mode():
+        got = m(x.to(dev))
+    torch.cuda.synchronize()
+    assert CH.LAUNCHES == before + 1
+    out = m(x.to(dev).requires_grad_())
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert CH.LAUNCHES == before + 2 and kernels.LAUNCHES == others
+    assert m.block1[0].weight.grad is not None
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= ATOL * max(1.0, want.abs().max().item()), err
+
+
+def test_rectify_head_gradients_match_cudnn(dev):
+    """Under autograd K8's Function gives the input, weight and bias
+    gradients of cuDNN's autograd of ``relu(conv2d)`` within 1e-5 of each
+    gradient's largest magnitude: its backward is the same
+    ``threshold_backward`` and ``convolution_backward`` on the saved
+    tensors.  (At this seed no pre-activation lies within rounding of 0, so
+    both take the same ReLU mask, checked first.)  A frozen input gets no
+    gradient."""
+    import torch.nn.functional as F
+    from vfidkr_torch.ops import conv_head as CH
+    x, wt, b = (t.to(dev) for t in _head_inputs(2, 45, 64, 96, seed=15))
+    cot = torch.randn(2, 128, 64, 96,
+                      generator=torch.Generator().manual_seed(16)).to(dev)
+    leaves = [t.clone().requires_grad_() for t in (x, wt, b)]
+    ref = [t.clone().requires_grad_() for t in (x, wt, b)]
+    before = CH.LAUNCHES
+    out = CH.rectify_head(*leaves)
+    assert CH.LAUNCHES == before + 1
+    assert type(out.grad_fn).__name__ == "_RectifyHeadBackward"
+    want = F.relu(F.conv2d(ref[0], ref[1], ref[2], padding=3))
+    assert torch.equal(out > 0, want > 0)
+    got_g = torch.autograd.grad((out * cot).sum(), leaves)
+    want_g = torch.autograd.grad((want * cot).sum(), ref)
+    for name, a, e in zip("xwb", got_g, want_g):
+        err = (a - e).abs().max().item()
+        assert err <= 1e-5 * e.abs().max().item(), (name, err)
+    frozen = CH.rectify_head(x, *leaves[1:])
+    gw, gb = torch.autograd.grad((frozen * cot).sum(), leaves[1:])
+    assert torch.allclose(gw, got_g[1], rtol=0, atol=1e-5 * gw.abs().max().item())
+
+
+def test_rectify_head_rejects_bad_inputs(dev):
+    from vfidkr_torch.ops import conv_head as CH
+    x, wt, b = (t.to(dev) for t in _head_inputs(1, 13, 16, 16))
+    with pytest.raises(TypeError, match="float32"):
+        CH.rectify_head(x.half(), wt, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        CH.rectify_head(x.transpose(2, 3), wt, b)
+    with pytest.raises(ValueError, match="7x7"):
+        CH.rectify_head(x, wt[:, :, :3, :3].contiguous(), b)
+    with pytest.raises(ValueError, match="different devices"):
+        CH.rectify_head(x, wt.cpu(), b)

@@ -59,6 +59,8 @@ SIGNATURES = {
     "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, w (one conv's packed taps), res (or NULL), out (NHWC), n, h, w, stream
     "vfidkr_fused_resblocks": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w, b, out, n, c, h, w, stream (launched by ops/conv_head.py)
+    "vfidkr_rectify_head": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

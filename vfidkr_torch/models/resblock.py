@@ -7,7 +7,10 @@ residual blocks, 3x3 conv to 3 channels.  Parameter names are the
 reference's (``block1.0``, ``block2.conv1``, ..., ``block5.0``).
 Init: normal(0, sqrt(2 / (k*k*out))), zero bias.
 
-In float32 the blocks are chained.  In the bf16 eval lane
+In float32 the blocks are chained, the head (block 1's conv, bias and ReLU)
+through ``rectify_head`` (``vfidkr_torch/ops/conv_head.py``, the kernel K8 on
+CUDA tensors); its parameters stay ``block1.0.weight`` and ``block1.0.bias``.
+In the bf16 eval lane
 (``compute_dtype=torch.bfloat16``) blocks 1 and 5 run in bf16 and the
 three residual blocks run as ``fused_resblocks``
 (``vfidkr_torch/ops/rectify.py``, the kernel K4), the semantics of the JAX
@@ -24,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from vfidkr_torch.models.layers import conv
+from vfidkr_torch.ops.conv_head import rectify_head
 from vfidkr_torch.ops.rectify import fused_resblocks
+from vfidkr_torch.utils.profiling import span
 
 
 class ResBasicBlock(nn.Module):
@@ -72,7 +77,12 @@ class MultipleBasicBlock(nn.Module):
                             for c in (blk.conv1, blk.conv2)]).bfloat16()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.block1(x)
+        with span("vfidkr/rectifier/head"):
+            if self.compute_dtype == torch.float32:
+                head = self.block1[0]
+                h = rectify_head(x, head.weight, head.bias)
+            else:
+                h = self.block1(x)
         if self.compute_dtype == torch.float32:
             h = self.block4(self.block3(self.block2(h)))
         else:
