@@ -94,7 +94,8 @@ def train_fault(run, fault: str, compare) -> dict:
     if fault == "half_batch":
         half = max(1, batches[0]["x0"].shape[0] // 2)
         batches = [{k: v[:half] for k, v in b.items()} for b in batches]
-    got = ref_train.train_steps(P, batches, lane)
+    got = ref_train.train_steps(run.cell["reference"], run.cell["config"], P,
+                                batches, lane)
     if fault == "loss_altered":
         got["losses"][0] *= 1.01
     return compare(got, want)

@@ -8,14 +8,21 @@ the generators of ``benchmark.lib.traffic``),
 ``benchmark/workloads/<cell>.json`` (the cell's lane, mode, how many
 units it traces and samples for the check, and the limits of the check)
 and ``benchmark/metrics/<metric>.py`` (one reader a per-layer metric).  A
-new cell, mix or metric is a new file and a new entry, never an edit.
+configuration names its plain reference, a file under
+``benchmark/reference/`` and a function in it (``"reference": {"file",
+"function"}``), which the check and the FLOP count run.  A new cell, mix
+or metric is a new file and a new entry, never an edit; a new
+configuration is its config file and, where no reference file has its
+net, a reference file of its own, never an edit.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 from benchmark.lib.traffic import check_mix
 
@@ -34,7 +41,8 @@ def benchmark_spec(root: Path = ROOT) -> dict:
 def resolve(name: str, spec: dict | None = None) -> dict:
     """The cell ``name`` with its files read: {"name", "entry" (its
     BENCHMARK.json entry), "config", "mix", "workload", "end_to_end",
-    "per_layer"} (the metrics the cell reports)."""
+    "per_layer" (the metrics the cell reports), "reference" (the
+    configuration's ``Reference``)}."""
     spec = benchmark_spec() if spec is None else spec
     entries = {w["name"]: w for w in spec["workloads"]}
     if name not in entries:
@@ -42,6 +50,7 @@ def resolve(name: str, spec: dict | None = None) -> dict:
                        f"{sorted(entries)}")
     entry = entries[name]
     config = load_json(BENCH / "configs" / f"{entry['config']}.json")
+    reference = load_reference(config)
     mix = load_json(BENCH / "traffic" / f"{entry['traffic']}.json")
     workload = load_json(BENCH / "workloads" / f"{name}.json")
     check_mix(mix, workload["mode"], f"traffic/{entry['traffic']}.json")
@@ -57,7 +66,44 @@ def resolve(name: str, spec: dict | None = None) -> dict:
                  if name in m.get("workloads", [name] if m["moves"] in
                                   e2e_names else [])]
     return {"name": name, "entry": entry, "config": config, "mix": mix,
-            "workload": workload, "end_to_end": e2e, "per_layer": per_layer}
+            "workload": workload, "end_to_end": e2e, "per_layer": per_layer,
+            "reference": reference}
+
+
+class Reference(NamedTuple):
+    """A configuration's plain reference.  ``forward(P, i0, i2, lane,
+    config, training=False)`` -> (blends, rectified): lists of one (B,3,H,W)
+    frame a synthesised frame, from the weights ``P`` (the reference
+    checkpoint's names), the frames (B,3,H,W) in [0, 1], the lane (child
+    -> precision) and the configuration; in training the projection leaves
+    its holes and the gradients reach the trained children.  ``groups``:
+    the file's ``GROUPS``, {group: (parameter-name prefixes, learning
+    rate)} of what the trainer trains (none where the file has none)."""
+    forward: Callable
+    groups: dict
+
+
+def load_reference(config: dict) -> Reference:
+    """The reference that ``config["reference"]`` names: the function
+    ``function`` of the file ``file`` under ``benchmark/reference/``.  The
+    file is imported as the module ``benchmark.reference.<its stem>``, so
+    a reference that builds on ``nets`` shares its stage hook, which the
+    FLOP count sets."""
+    ref = config["reference"]
+    path = BENCH / "reference" / ref["file"]
+    if path.parent != BENCH / "reference" or path.suffix != ".py" or \
+            not path.is_file():
+        raise FileNotFoundError(
+            f"configs/{config['name']}.json names the reference file "
+            f"{path.relative_to(ROOT)}, which is not a file of "
+            f"benchmark/reference/")
+    module = importlib.import_module(f"benchmark.reference.{path.stem}")
+    forward = getattr(module, ref["function"], None)
+    if not callable(forward):
+        raise AttributeError(f"configs/{config['name']}.json names the "
+                             f"reference {ref['function']!r}, which "
+                             f"{path.relative_to(ROOT)} does not define")
+    return Reference(forward, getattr(module, "GROUPS", {}))
 
 
 def load_reader(metric: str):

@@ -29,7 +29,6 @@ from benchmark.lib.cell import build_model, lane_of
 from benchmark.lib.traffic import clip_index, make_clip
 from benchmark.lib.weights import make_state
 from benchmark.lib.work import launch_work
-from benchmark.reference import nets
 
 _SAMPLE_STREAM = 4
 PAD_MULTIPLE, MIN_PAD = 128, 32       # the driver's padding of one card
@@ -52,18 +51,14 @@ def reference_pad(x: torch.Tensor):
 
 
 def reference_outputs(cell, P, lane, a: np.ndarray, b: np.ndarray, device):
-    """The reference's float32 outputs (one per synthesised frame, padded)
-    and uint8 frames (K, H, W, 3) for the frame pair (a, b)."""
+    """The cell's reference's float32 outputs (one per synthesised frame,
+    padded) and uint8 frames (K, H, W, 3) for the frame pair (a, b)."""
     to = lambda f: torch.from_numpy(f).to(device).permute(2, 0, 1)[None] \
         .float() / 255.0
     (xa, pads), (xb, _) = reference_pad(to(a)), reference_pad(to(b))
-    cfg, which = cell["config"], cell["workload"]["save_which"]
     with torch.no_grad():
-        if cfg["net_name"] == "DAIN":
-            outs = [nets.dain(P, xa, xb, lane)["outputs"][which]]
-        else:
-            outs = nets.dain_slowmotion(P, xa, xb, lane,
-                                        cfg["time_step"])["outputs"][which]
+        outs = cell["reference"].forward(P, xa, xb, lane, cell["config"])[
+            cell["workload"]["save_which"]]
     left, right, top, bottom = pads
     frames = torch.cat([o[:, :, top:o.shape[2] - bottom,
                           left:o.shape[3] - right] for o in outs])

@@ -161,7 +161,9 @@ class TrainRun:
         ctx = (ref_ops.tf32_on(self.device) if "tf32" in lane.values()
                else contextlib.nullcontext())
         with ctx:
-            return ref_train.train_steps(P, self.reference_batches(), lane)
+            return ref_train.train_steps(self.cell["reference"],
+                                         self.cell["config"], P,
+                                         self.reference_batches(), lane)
 
     def program_readings(self) -> dict:
         P0 = make_state(self.shapes, self.cell["config"], self.seed,
@@ -185,9 +187,11 @@ class TrainRun:
         P = make_state(self.shapes, self.cell["config"], self.seed,
                        self.device)
         batch = self.reference_batches()[0]
-        leaves = list(ref_train.trained(P))
-        return lambda: ref_train.loss_and_grads(P, batch, lane_of(self.cell),
-                                                leaves)
+        reference = self.cell["reference"]
+        leaves = list(ref_train.trained(P, reference.groups))
+        return lambda: ref_train.loss_and_grads(
+            reference, self.cell["config"], P, batch, lane_of(self.cell),
+            leaves)
 
     def free(self) -> None:
         del self.model, self.opt

@@ -22,6 +22,14 @@ take (``ops.PRECISIONS``).  The networks follow the VFIDKR repository's
 * in slow motion, the MegaDepth hourglass (``megadepth_spec.json``, a copy
   of the architecture file) and the S2DF context net.
 
+``dain`` and ``dain_slowmotion`` are the references that configurations
+name (``"reference": {"file": "nets.py", "function": ...}``), with the
+reference's signature: ``(P, i0, i2, lane, config, training=False)`` ->
+(blends, rectified), lists of one (B,3,H,W) frame a synthesised frame.
+``GROUPS`` are the trained parameters of both.  A reference in a file of
+its own names its children's stages through ``_stage``, so that the FLOP
+count splits its work by child.
+
 It imports nothing of the program.
 """
 
@@ -46,6 +54,13 @@ _DC = ((1, 1), (2, 2), (3, 4), (4, 8), (5, 16), (6, 1))
 STAGE_HOOK = None
 SPEC = json.loads((pathlib.Path(__file__).parent /
                    "megadepth_spec.json").read_text())
+# the trained parameters, as the VFIDKR repository's ``train.py`` groups
+# them for Adamax: {group: (name prefixes, learning rate)}.  The vestigial
+# children and DAIN_slowmotion's ctxNet and depthNet train in none.
+GROUPS = {"filter": (("initScaleNets_filter.", "initScaleNets_filter1.",
+                      "initScaleNets_filter2."), 2e-3),
+          "flow": (("flownets.",), 2e-3 * 0.01),
+          "rectify": (("rectifyNet.",), 1e-3)}
 
 
 def _stage(name, fn, *args):
@@ -197,8 +212,9 @@ def megadepth(P, x, prec):
     return _megadepth_node(P, SPEC, "depthNet", x, prec)
 
 
-def dain(P, i0, i2, lane, training=False):
-    """DAIN at t = 0.5: {"outputs": [blend, rectified], "offsets": [...]}."""
+def dain(P, i0, i2, lane, config, training=False):
+    """DAIN at t = 0.5: ([blend], [rectified]).  In training the projection
+    leaves its holes at 0 and the gradient reaches the flow through it."""
     b = i0.shape[0]
     trunk = _stage("initScaleNets_filter", mononet, P, torch.cat([i0, i2], 1),
                    lane["initScaleNets_filter"])
@@ -214,18 +230,27 @@ def dain(P, i0, i2, lane, training=False):
     cur = ref0 / 2.0 + ref2 / 2.0
     x = torch.cat([cur, ref0, ref2, offs[:b], offs[b:], filt0, filt1], 1)
     rectified = _stage("rectifyNet", rectifier, P, x, lane["rectifyNet"]) + cur
-    return {"outputs": [cur, rectified], "offsets": [offs[:b], offs[b:]]}
+    return [cur], [rectified]
 
 
-def dain_slowmotion(P, i0, i2, lane, timestep):
-    """DAIN_slowmotion (evaluation): ``1/timestep - 1`` frames at t =
-    timestep, 2 timestep, ...: {"outputs": [blends, rectified]}."""
+def dain_slowmotion(P, i0, i2, lane, config, training=False):
+    """DAIN_slowmotion at ``config["time_step"]``: ``1/timestep - 1``
+    frames at t = timestep, 2 timestep, ...: (blends, rectified).
+
+    The log-depth enters the contexts detached, and the contexts are
+    warped with the offsets and kernels detached: no gradient reaches the
+    frozen ctxNet and depthNet, nor the flow or the kernels through the
+    contexts.  In training the depth-weighted projection leaves its holes
+    at 0 and the gradient reaches the flow through it (the depth, from the
+    frozen depthNet, takes none); MegaDepth's BN stays on its running
+    statistics."""
+    timestep = config["time_step"]
     b = i0.shape[0]
     frames = torch.cat([i0, i2], 0)
     log_depth = _stage("depthNet", megadepth, P, frames, lane["depthNet"])
     depth_inv = 1e-6 + torch.exp(-log_depth)
     ctx = torch.cat([_stage("ctxNet", s2df, P, frames, lane["ctxNet"]),
-                     log_depth], 1)
+                     log_depth.detach()], 1)
     trunk = _stage("initScaleNets_filter", mononet, P, torch.cat([i0, i2], 1),
                    lane["initScaleNets_filter"])
     filt0, filt1 = (_stage(n, branch, P, n, trunk, lane[n])
@@ -239,8 +264,9 @@ def dain_slowmotion(P, i0, i2, lane, timestep):
     for t, t_rev in zip(steps, steps[::-1]):
         flows = ops.upsample_bilinear(torch.cat(
             [fwd * (DIV_FLOW * t), bwd * (DIV_FLOW * t_rev)], 0), 4)
-        offs = ops.depth_flow_project(flows, depth_inv, hole_fill=True)
-        ctx_w = ops.filter_interpolate(ctx, offs, filt)
+        offs = ops.depth_flow_project(flows, depth_inv,
+                                      hole_fill=not training)
+        ctx_w = ops.filter_interpolate(ctx, offs.detach(), filt.detach())
         refs = ops.filter_interpolate(frames, offs, filt)
         ref0, ref2 = refs[:b], refs[b:]
         out = ref0 * (1.0 - t) + ref2 * t
@@ -248,4 +274,4 @@ def dain_slowmotion(P, i0, i2, lane, timestep):
                        ctx_w[:b], ctx_w[b:]], 1)
         blends.append(out)
         rectified.append(_stage("rectifyNet", rectifier, P, x, lane["rectifyNet"]) + out)
-    return {"outputs": [blends, rectified]}
+    return blends, rectified

@@ -207,9 +207,14 @@ def flow_project(flow: torch.Tensor, hole_fill: bool) -> torch.Tensor:
 
 def depth_flow_project(flow: torch.Tensor, depth_inv: torch.Tensor,
                        hole_fill: bool) -> torch.Tensor:
-    """The depth-weighted projection (evaluation: no gradient)."""
+    """The depth-weighted projection: holes filled in evaluation (no
+    gradient), left at 0 in training, where the gradient reaches the flow
+    through the weighted scatter.  The depth takes no gradient: its net is
+    frozen (the reference's depth gradient, which autodiff of this average
+    would not give, is never asked for)."""
     n, _, h, w = flow.shape
-    acc = scatter4(flow.detach(), depth_inv.detach().reshape(n, h, w))
+    acc = scatter4(flow.detach() if hole_fill else flow,
+                   depth_inv.detach().reshape(n, h, w))
     out = count_average(acc)
     return fill_holes(acc[:, 2], out) if hole_fill else out
 

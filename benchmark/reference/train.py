@@ -1,32 +1,33 @@
-"""The plain training step of DAIN: the loss, its gradients and Adamax.
+"""The plain training step: the loss, its gradients and Adamax.
 
-As the VFIDKR repository's ``train.py`` trains (``my_args.py`` defaults):
-the loss is the Charbonnier loss (epsilon 1e-6) of the rectified output
-against the middle frame (``alpha = (0, 1)``: the blend's loss has weight
-0); the flow projection leaves holes at 0 in training; Adamax (betas 0.9,
-0.999, eps 1e-8, as ``torch.optim.Adamax`` states it) in three groups: the
-kernel nets at lr 2e-3, PWC-Net at 2e-3 x 0.01, the rectifier at 1e-3.
-The vestigial children train in no group.
+As the VFIDKR repository's ``train.py`` trains (``my_args.py`` defaults),
+through whichever reference a configuration names
+(``benchmark.lib.cell.Reference``): the reference's forward in training
+gives two lists of frames, the blends and the rectified frames, one frame
+a synthesised frame; each list's pixel loss is the mean over its frames of
+their Charbonnier losses (epsilon 1e-6) against the middle frame, and the
+loss is ``alpha``'s sum of them, ``alpha = (0, 1)`` (the blends' loss has
+weight 0).  At t = 0.5 there is one frame a list.  Adamax (betas 0.9,
+0.999, eps 1e-8, as ``torch.optim.Adamax`` states it) over the reference's
+trained groups (its file's ``GROUPS``: name prefixes and learning rates).
+A new configuration brings its own reference file, with its groups, and
+needs no edit here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from benchmark.reference import nets
-
-GROUPS = {"filter": (("initScaleNets_filter.", "initScaleNets_filter1.",
-                      "initScaleNets_filter2."), 2e-3),
-          "flow": (("flownets.",), 2e-3 * 0.01),
-          "rectify": (("rectifyNet.",), 1e-3)}
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8
 CHARBONNIER_EPS = 1e-6
+ALPHA = (0.0, 1.0)          # the blends' and the rectified frames' weights
 
 
-def trained(P: dict) -> dict:
-    """name -> learning rate of every trained parameter."""
+def trained(P: dict, groups: dict) -> dict:
+    """name -> learning rate of every parameter of ``groups`` ({group:
+    (name prefixes, learning rate)})."""
     out = {}
-    for prefixes, lr in GROUPS.values():
+    for prefixes, lr in groups.values():
         for k in P:
             if k.startswith(prefixes) and not k.endswith(
                     ("running_mean", "running_var", "num_batches_tracked")):
@@ -34,13 +35,20 @@ def trained(P: dict) -> dict:
     return out
 
 
-def loss_and_grads(P: dict, batch: dict, lane: dict, leaves) -> tuple:
-    """(loss, {leaf: gradient}) of one batch (x0, x1, y)."""
+def charbonnier(diff: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.sqrt(diff * diff + CHARBONNIER_EPS ** 2))
+
+
+def loss_and_grads(reference, config: dict, P: dict, batch: dict,
+                   lane: dict, leaves) -> tuple:
+    """(loss, {leaf: gradient}) of one batch (x0, x1, y) through
+    ``reference`` in training."""
     params = {k: P[k].detach().clone().requires_grad_() for k in leaves}
     full = dict(P, **params)
-    out = nets.dain(full, batch["x0"], batch["x1"], lane, training=True)
-    diff = out["outputs"][1] - batch["y"]
-    loss = torch.mean(torch.sqrt(diff * diff + CHARBONNIER_EPS ** 2))
+    lists = reference.forward(full, batch["x0"], batch["x1"], lane, config,
+                              training=True)
+    loss = sum(a * sum(charbonnier(o - batch["y"]) for o in frames)
+               / len(frames) for a, frames in zip(ALPHA, lists) if a > 0)
     grads = torch.autograd.grad(loss, [params[k] for k in leaves])
     return float(loss.detach()), dict(zip(leaves, grads))
 
@@ -63,17 +71,19 @@ class Adamax:
             P[k] = P[k] - (self.lrs[k] / (1 - BETA1 ** self.t)) * m / u
 
 
-def train_steps(P: dict, batches: list, lane: dict) -> dict:
+def train_steps(reference, config: dict, P: dict, batches: list,
+                lane: dict) -> dict:
     """The reference's steps over ``batches`` from the weights ``P`` (not
     changed): {"losses", "grad1" (the first step's gradients), "change"
     (each trained leaf's change over the steps)}."""
-    lrs = trained(P)
+    lrs = trained(P, reference.groups)
     leaves = list(lrs)
     state = dict(P)
     opt = Adamax(lrs)
     losses, grad1 = [], None
     for batch in batches:
-        loss, grads = loss_and_grads(state, batch, lane, leaves)
+        loss, grads = loss_and_grads(reference, config, state, batch, lane,
+                                     leaves)
         losses.append(loss)
         if grad1 is None:
             grad1 = grads

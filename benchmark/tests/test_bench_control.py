@@ -20,6 +20,7 @@ from benchmark.lib.harness import run_cell  # noqa: E402
 
 SEED = 2 ** 31 + 99
 EVAL, TRAIN = "dain-448x256-f32", "dain-448x256-train-b3-f32"
+SLOWMO_TRAIN = "dain_slowmo2x-448x256-train-b3-f32"
 
 
 def _small(name):
@@ -53,8 +54,9 @@ def test_eval_answer_altered_is_caught(monkeypatch):
     assert result["check"]["u8_mismatch"]["value"] > 0.5
 
 
-def test_sound_train_run_is_correct():
-    assert _run(_small(TRAIN))["correct"]
+@pytest.mark.parametrize("name", [TRAIN, SLOWMO_TRAIN])
+def test_sound_train_run_is_correct(name):
+    assert _run(_small(name))["correct"]
 
 
 def _broken_step(kind):
@@ -77,12 +79,13 @@ def _broken_step(kind):
     return step
 
 
+@pytest.mark.parametrize("name", [TRAIN, SLOWMO_TRAIN])
 @pytest.mark.parametrize("kind,number", [("unchanged", "change_median_gap"),
                                          ("half_batch", "loss1_gap"),
                                          ("loss_altered", "loss1_gap")])
-def test_train_faults_are_caught(monkeypatch, kind, number):
+def test_train_faults_are_caught(monkeypatch, name, kind, number):
     monkeypatch.setattr(traincell, "train_step", _broken_step(kind))
-    result = _run(_small(TRAIN))
+    result = _run(_small(name))
     assert not result["correct"]
     table = result["check"]
     assert table[number]["value"] > table[number]["limit"]
@@ -110,8 +113,9 @@ def test_bf16_control_in_the_rectifier_alone_fails_the_limits():
     assert not ok, table
 
 
-def test_train_control_fails_the_limits():
-    cell = _small(TRAIN)
+@pytest.mark.parametrize("name", [TRAIN, SLOWMO_TRAIN])
+def test_train_control_fails_the_limits(name):
+    cell = _small(name)
     run = traincell.TrainRun(cell, SEED, "cpu")
     run.setup()
     run.free()
@@ -121,7 +125,8 @@ def test_train_control_fails_the_limits():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", [EVAL, "dain_slowmo4x-1280x720-f32",
-                                  TRAIN, "dain-448x256-bf16"])
+                                  TRAIN, "dain-448x256-bf16",
+                                  "dain-448x256-train-b40-f32", SLOWMO_TRAIN])
 def test_control_at_the_cells_size_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the control is read at the cell's "

@@ -1,7 +1,11 @@
 """The benchmark's plain reference held to the program on the CPU at a
-small size: DAIN's and DAIN_slowmotion's forwards in both lanes, and one
-DAIN train step's loss and gradients.  On CPU tensors the program runs its
-kernels' plain versions, so the two agree to float32 rounding."""
+small size: each configuration's named reference against the program's
+forward (DAIN and DAIN_slowmotion, both lanes), and one train step's loss
+and gradients of each training cell's configuration (DAIN, and
+DAIN_slowmotion at t = 0.5 with its frozen nets).  On CPU tensors the
+program runs its kernels' plain versions, so the two agree to float32
+rounding.  A configuration naming a reference that is not there fails
+when its cell is resolved."""
 
 import sys
 from pathlib import Path
@@ -11,10 +15,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from benchmark.lib import traffic  # noqa: E402
+from benchmark.lib import cell as cell_lib, traffic  # noqa: E402
 from benchmark.lib.cell import build_model, lane_of, resolve  # noqa: E402
 from benchmark.lib.weights import make_state  # noqa: E402
-from benchmark.reference import nets, train as ref_train  # noqa: E402
+from benchmark.reference import train as ref_train  # noqa: E402
 
 SEED = 2 ** 33 + 7
 
@@ -45,9 +49,7 @@ def test_forward_matches_program(name, rtol):
     cfg = cell["config"]
     with torch.no_grad():
         got = model(i0, i2)["outputs"]
-        want = (nets.dain(P, i0, i2, lane_of(cell)) if cfg["net_name"] ==
-                "DAIN" else nets.dain_slowmotion(P, i0, i2, lane_of(cell),
-                                                 cfg["time_step"]))["outputs"]
+        want = cell["reference"].forward(P, i0, i2, lane_of(cell), cfg)
     flat = lambda outs: [t for o in outs for t in
                          (o if isinstance(o, list) else [o])]
     got, want = flat(got), flat(want)
@@ -62,11 +64,12 @@ def test_forward_matches_program(name, rtol):
     assert inside > 0.8 and rect.std().item() > 0.05
 
 
-def test_train_step_gradients_match_program():
+@pytest.mark.parametrize("name", ["dain-448x256-train-b3-f32",
+                                  "dain_slowmo2x-448x256-train-b3-f32"])
+def test_train_step_gradients_match_program(name):
     from vfidkr_torch.training.train_state import (TrainConfig,
                                                    make_optimizer, train_step)
-    cell = _cell("dain-448x256-train-b3-f32", height=64, width=64, pool=4,
-                 batch=2)
+    cell = _cell(name, height=64, width=64, pool=4, batch=2)
     model, shapes = build_model(cell, "cpu", SEED)
     model.train()
     opt = make_optimizer(model, TrainConfig())
@@ -75,8 +78,10 @@ def test_train_step_gradients_match_program():
     samples = [traffic.augment_plain(pool[i], r) for i, r in zip(idx, records)]
     batch = {k: torch.stack([s[k] for s in samples]) for k in ("x0", "x1", "y")}
     P = make_state(shapes, cell["config"], SEED, "cpu")
-    leaves = list(ref_train.trained(P))
-    loss, grads = ref_train.loss_and_grads(P, batch, lane_of(cell), leaves)
+    reference = cell["reference"]
+    leaves = list(ref_train.trained(P, reference.groups))
+    loss, grads = ref_train.loss_and_grads(reference, cell["config"], P,
+                                           batch, lane_of(cell), leaves)
     m = train_step(model, opt, batch, TrainConfig())
     assert abs(float(m["total"]) - loss) <= 1e-5 * abs(loss)
     named = dict(model.named_parameters())
@@ -87,6 +92,26 @@ def test_train_step_gradients_match_program():
     for k in leaves:
         diff = (named[k].grad - grads[k]).norm().item()
         assert diff <= 1e-4 * max(grads[k].norm().item(), med), k
+
+
+@pytest.mark.parametrize("file,function", [("absent.py", "dain"),
+                                           ("../lib/cell.py", "resolve"),
+                                           ("nets.py", "absent")])
+def test_a_configuration_naming_a_missing_reference_fails_in_resolve(
+        monkeypatch, file, function):
+    real = cell_lib.load_json
+
+    def load(path):
+        out = real(path)
+        if path.parent.name == "configs" and path.stem == "dain":
+            out["reference"] = {"file": file, "function": function}
+        return out
+
+    monkeypatch.setattr(cell_lib, "load_json", load)
+    with pytest.raises((FileNotFoundError, AttributeError)) as err:
+        resolve("dain-448x256-f32")
+    assert "configs/dain.json" in str(err.value)
+    assert f"benchmark/reference/{file}" in str(err.value)
 
 
 def test_reference_adamax_is_torch_adamax():

@@ -22,7 +22,8 @@ NEW = ("upsample.device_ms.eval", "flow_pyramid.device_ms.eval",
        "forward.idle_ms.eval", "driver.idle_ms.eval", "loss.device_ms.train",
        "rectifier_bwd.device_ms.train", "flow_bwd.device_ms.train",
        "kernel_unet_bwd.device_ms.train", "warp_bwd.device_ms.train",
-       "between_steps.idle_ms.train")
+       "between_steps.idle_ms.train", "depth.device_ms.train",
+       "context.device_ms.train")
 
 
 def _trace(ops, window, host, units=1):
@@ -131,6 +132,24 @@ def test_backward_spans_take_their_nodes_gradient_sums():
     t.host = [h for h in t.host if not h.name.startswith(spans.EVALUATE)]
     assert load_reader("rectifier_bwd.device_ms.train").read(t) == \
         pytest.approx(40e-6)
+
+
+def test_frozen_stages_of_a_slow_motion_step():
+    t = _steps()
+    # the forward 10..50 opens with the frozen depth 10..30 and context
+    # 30..40 nets: their kernels, launched at 12, 14 and 32, run 12..20,
+    # 20..30 and 32..38; the kernel at 42 lies in neither
+    t.host += [tr.HostOp(10, 30, "vfidkr/depth", MAIN),
+               tr.HostOp(30, 40, "vfidkr/context", MAIN)]
+    t.ops = [o for o in t.ops if o.name != "fwd_kernel"] + [
+        tr.DeviceOp(12, 20, "depth_kernel", 12),
+        tr.DeviceOp(20, 30, "depth_kernel", 14),
+        tr.DeviceOp(32, 38, "ctx_kernel", 32),
+        tr.DeviceOp(42, 48, "fwd_kernel", 42)]
+    assert load_reader("depth.device_ms.train").read(t) == \
+        pytest.approx(18e-6)
+    assert load_reader("context.device_ms.train").read(t) == \
+        pytest.approx(6e-6)
 
 
 def test_idle_time_between_steps():
