@@ -4,10 +4,11 @@ step, the DAIN_slowmotion 4x eval forward and the DAIN_slowmotion train step
 in float32, the same two eval forwards in the bf16 fast-eval lane, the
 Middlebury eval app's core in that lane, the N x video driver on a 1280x720
 PNG clip in both lanes, the trainer on PNG triplets from disk with a resume,
-the depth-eval core, the row-sharded op chains and video forward, and the
-data-parallel train step, on one NVIDIA GPU through its eight hand-written
-CUDA kernels; then the reference's dormant ops, DAIN's vestigial children
-and the PNG formats past 8-bit, and check them.
+the depth-eval core, the row-sharded op chains and video forward, the
+data-parallel train step, and SepConv through the video driver at 1080p, on
+one NVIDIA GPU through its hand-written CUDA kernels; then the reference's
+dormant ops, DAIN's vestigial children and the PNG formats past 8-bit, and
+check them.
 
 Run from the root of the repository, with no arguments:
 
@@ -135,6 +136,18 @@ session comes last (7), since host-bound timings read slower after one:
    gray, Adam7 8-bit RGB, 4-bit palette) read back by read_rgb exactly, each
    read's host ms; the depth-eval CLI on the card on a 16-bit Adam7 PNG with
    an .sdr.npz sample through the numpy resize (no PIL on the machine);
+5n. sepconv: SepConv (ModelConfig("SepConv"), the SepConv cell's weights
+   from benchmark/configs/sepconv.json, seed 0): its forward on the card
+   held to the CPU at 192x128; the video driver's to_input and
+   frames_between on a 1920x1080 clip run at 1984x1152 (padded), with
+   separable_conv.LAUNCHES set to 0 just before: K9 (sepconv_pair) once a
+   pair and no other kernel of the port, (1, 1080, 1920, 3) uint8 frames,
+   the pairs' host time; then K9 against its plain version in float64 at
+   (1,3,1152,1984) and at the ragged (2,3,37,75), each value within K9_TOL
+   of the float64 sum of its terms' magnitudes, two launches bit for bit,
+   and its time a call (CUDA events), its plain version's and its bound
+   (benchmark/lib/local_conv.bound_s); cuDNN's autotuner flag, which the
+   model's build turns on, restored after;
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -181,13 +194,14 @@ session comes last (7), since host-bound timings read slower after one:
    vfidkr_torch.utils.trace around one DAIN eval forward, whose Chrome trace
    must hold K1-K3's device events;
 8. one JSON line of the kernels, with each kernel's launches in one run of
-   each path, then the result line.
+   each path (K9's row from phase 5n), then the result line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import io
 import json
 import math
@@ -210,6 +224,7 @@ from vfidkr_torch.apps import train as train_app
 from vfidkr_torch import ops as OPS
 from vfidkr_torch.apps import depth_eval
 from vfidkr_torch.apps.depth_eval import evaluate_depth
+from vfidkr_torch.config import ModelConfig
 from vfidkr_torch.convert import reference_state_dict
 from vfidkr_torch.data import native, synthetic, vimeo90k
 from vfidkr_torch.kernels import build
@@ -230,11 +245,20 @@ from vfidkr_torch.utils import pad_to_multiple, unpad
 from vfidkr_torch.utils.image_io import (ZLIB_LEVEL, read_png, read_rgb,
                                          write_png)
 
+# the module (``vfidkr_torch.ops`` exports its function of the same name)
+SC = importlib.import_module("vfidkr_torch.ops.separable_conv")
+
 # the flows and hole layouts that reach K7's and K3's branches, shared with
 # the card-only tests
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 import torch_geometry as geo  # noqa: E402
 import torch_png  # noqa: E402
+
+# the SepConv cell's configuration and weights, and K9's bound
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from benchmark.lib.cell import load_json  # noqa: E402
+from benchmark.lib.local_conv import bound_s  # noqa: E402
+from benchmark.lib.weights import make_state, shapes_of  # noqa: E402
 
 N, H, W = 2, 256, 448           # both directions of one 448x256 frame pair
 C_CTX = 196                     # DAIN_slowmotion's context: S2DF + log-depth
@@ -301,6 +325,15 @@ DP_STEPS = 3                    # the data-parallel phase's train steps
 # separable ops' filters have 16 taps (output grid (H-15) x (W-15)); the
 # z-buffer's inverse depth is 1 + k/256 for k < 8, so colliding sources tie
 DORMANT_OFFSET, SEP_TAPS, DEPTH_LEVELS = 1.5, 16, 8
+# the sepconv phase: the cell's 1920x1080 clip, run at 1984x1152 after the
+# driver's padding, 3 pairs; the card against the CPU at 192x128 (outputs
+# near 0.5, float32 both, convs in other orders and algorithms); K9 at the
+# path's shape and at a ragged one, its error over the float64 sum of its
+# terms' magnitudes (float32 sums in another order read below 1e-6)
+SEPCONV_HW, SEPCONV_PADDED, SEPCONV_PAIRS = (1080, 1920), (1152, 1984), 3
+SEPCONV_CPU_HW, SEPCONV_CPU_ATOL = (128, 192), 1e-4
+K9_SHAPES = ((1, 1152, 1984), (2, 37, 75))
+K9_TOL = 2e-6
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -383,6 +416,8 @@ PATHS["data_parallel"] = {k: DP_STEPS * n
 # phase 3's
 PATHS["dormant_ops"] = {}
 PATHS["vestigial_eval"] = dict(PATHS["eval_forward"])
+# SepConv's path launches K9 alone (phase 5n counts it)
+PATHS["sepconv_video"] = {}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1}
@@ -1119,15 +1154,16 @@ def tame(model: torch.nn.Module, seed: int = 0) -> None:
                 p.add_((torch.rand(p.shape, generator=g) - 0.5) * 0.02)
 
 
-def make_frames(g: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+def make_frames(g: torch.Generator, h: int = H, w: int = W
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """A smooth random scene and the same scene moved by (5, -3) px, both on
-    the 8-bit grid."""
-    scene = F.interpolate(torch.rand(1, 3, H // 16 + 1, W // 16 + 1,
+    the 8-bit grid, (1, 3, h, w)."""
+    scene = F.interpolate(torch.rand(1, 3, h // 16 + 1, w // 16 + 1,
                                      generator=g),
-                          size=(H + 10, W + 10), mode="bicubic",
+                          size=(h + 10, w + 10), mode="bicubic",
                           align_corners=False).clamp(0, 1)
-    i0 = scene[:, :, 5:5 + H, 5:5 + W]
-    i2 = scene[:, :, 2:2 + H, 10:10 + W]
+    i0 = scene[:, :, 5:5 + h, 5:5 + w]
+    i2 = scene[:, :, 2:2 + h, 10:10 + w]
     q = lambda x: torch.round(x * 255) / 255
     return q(i0).contiguous(), q(i2).contiguous()
 
@@ -3226,6 +3262,145 @@ def phase_png_depths(dev: torch.device, card: str) -> None:
         raise AssertionError(f"the depth-eval CLI: {result}")
 
 
+def make_sepconv_model(dev) -> torch.nn.Module:
+    """SepConv built by ``ModelConfig`` (which turns cuDNN's autotuner on)
+    with the SepConv cell's weights from seed 0, in eval mode."""
+    config = load_json(Path(__file__).resolve().parent / "benchmark" /
+                       "configs" / "sepconv.json")
+    with torch.device("meta"):
+        model = ModelConfig("SepConv").build()
+    state = make_state(shapes_of(model), config, 0, dev)
+    model = model.to_empty(device=dev)
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def _k9_inputs(n, h, w, dev):
+    g = torch.Generator(device=dev).manual_seed(h * w)
+    i0, i2 = torch.rand(2, n, 3, h, w, generator=g, device=dev)
+    v1, h1, v2, h2 = (torch.rand(4, n, SC.K9_TAPS, h, w, generator=g,
+                                 device=dev) - 0.2) * 0.04
+    return i0, v1, h1, i2, v2, h2
+
+
+def _compare_k9(shape, args) -> float:
+    """K9 against its plain version in float64: each value's error over the
+    float64 sum of its terms' magnitudes (the plain version on |filters|,
+    the frames being positive) at most K9_TOL; two launches bit for bit.
+    Returns max |kernel - float64|."""
+    with torch.inference_mode():
+        got = SC.separable_conv_pair(*args)
+        again = SC.separable_conv_pair(*args)
+        d = [t.double() for t in args]
+        want = SC.separable_conv_pair_plain(*d)
+        mag = SC.separable_conv_pair_plain(d[0], d[1].abs(), d[2].abs(),
+                                           d[3], d[4].abs(), d[5].abs())
+    err = (got.double() - want).abs()
+    rel = (err / mag).max().item()
+    same = torch.equal(got, again)
+    print(f"[kernels] sepconv_pair K9 {shape}: error over the sum of |terms| "
+          f"{rel:.3e} against float64 (tolerance {K9_TOL:.0e}); max |kernel "
+          f"- float64| {err.max().item():.3e}; two launches "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    if not (rel <= K9_TOL and same):
+        raise AssertionError(f"sepconv_pair {shape}: failed its check")
+    return err.max().item()
+
+
+def phase_sepconv(dev: torch.device, card: str) -> tuple[dict, dict]:
+    """SepConv on the card against the CPU, the video driver's per-pair path
+    at 1080p with K9's launches counted, and K9 against float64 and timed.
+    Returns (the path's launches of the port's kernels, K9's row of the
+    kernels line)."""
+    saved = torch.backends.cudnn.benchmark
+    try:
+        model = make_sepconv_model(dev)
+        if not torch.backends.cudnn.benchmark:
+            raise AssertionError("ModelConfig('SepConv').build() left "
+                                 "cuDNN's autotuner off")
+        g = torch.Generator().manual_seed(19)
+        h, w = SEPCONV_CPU_HW
+        i0, i2 = make_frames(g, h, w)
+        with torch.inference_mode():
+            out = model(i0.to(dev), i2.to(dev))["outputs"][-1]
+            ref = copy.deepcopy(model).cpu()(i0, i2)["outputs"][-1]
+        _hold_to_cpu("sepconv", [(f"out {h}x{w}", out, ref,
+                                  SEPCONV_CPU_ATOL)])
+
+        h, w = SEPCONV_HW
+        clip = make_clip(g, SEPCONV_PAIRS + 1, h, w)
+        kernels.reset_launches()
+        heads = CH.LAUNCHES
+        SC.LAUNCHES = 0
+        times, clamped = [], []
+        a_in, pads = interpolate_video.to_input(clip[0], dev)
+        for k in range(SEPCONV_PAIRS):
+            t = time.perf_counter()
+            b_in, _ = interpolate_video.to_input(clip[k + 1], dev)
+            frames = interpolate_video.frames_between(model, a_in, b_in,
+                                                      pads).cpu()
+            times.append(time.perf_counter() - t)
+            if tuple(frames.shape) != (1, h, w, 3) or \
+                    frames.dtype != torch.uint8:
+                raise AssertionError(f"sepconv frames {tuple(frames.shape)}"
+                                     f" {frames.dtype}")
+            if tuple(b_in.shape[2:]) != SEPCONV_PADDED:
+                raise AssertionError(f"padded to {tuple(b_in.shape[2:])}")
+            clamped.append((frames == 0).float().mean().item() +
+                           (frames == 255).float().mean().item())
+            a_in = b_in
+        launches = dict(kernels.LAUNCHES)
+        print(f"[sepconv] the video driver's path, {SEPCONV_PAIRS} pairs at "
+              f"{w}x{h} run at {SEPCONV_PADDED[1]}x{SEPCONV_PADDED[0]}: "
+              f"sepconv_pair {SC.LAUNCHES} launches, rectify_head "
+              f"{CH.LAUNCHES - heads}, the port's others {launches}; frames "
+              f"(1, {h}, {w}, 3) uint8, {max(clamped):.2e} of the values at "
+              f"0 or 255 at most; host s a pair (first one tunes cuDNN): "
+              f"{[round(x, 4) for x in times]} on {card}")
+        if SC.LAUNCHES != SEPCONV_PAIRS:
+            raise AssertionError(f"sepconv_pair launched {SC.LAUNCHES} times "
+                                 f"in {SEPCONV_PAIRS} pairs")
+        _check_launches("sepconv_video", launches)
+        _check_head_launches("SepConv video", CH.LAUNCHES - heads, 0)
+        del model, a_in, b_in
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+    row = None
+    for n, h, w in K9_SHAPES:
+        args = _k9_inputs(n, h, w, dev)
+        err = _compare_k9((n, 3, h, w), args)
+        with torch.inference_mode():
+            call = statistics.median(cuda_times_ms(
+                lambda: SC.separable_conv_pair(*args)))
+            plain = statistics.median(cuda_times_ms(
+                lambda: SC.separable_conv_pair_plain(*args), warmup=1,
+                iters=3))
+        bound = bound_s(n, 3, h, w, SC.K9_TAPS) * 1e3
+        print(f"[times] K9 ({n},3,{h},{w}) (sepconv_pair): per call "
+              f"{call:.4f} ms with the wrapper (CUDA events, median of 50), "
+              f"plain {plain:.1f} ms (median of 3); bound {bound:.4f} ms by "
+              f"operations: {bound / call:.1%} of it, on {card}")
+        if row is None:
+            row = {"name": "sepconv_pair", "route": "cuda",
+                   "source": "vfidkr_torch/csrc/sepconv_pair.cu",
+                   "replaces": "vfidkr_tpu/ops/separable_conv.py:26 (static "
+                               "slices, twice, summed)",
+                   "case": f"K9 {(n, 3, h, w)}", "max_abs_err": err,
+                   "call_ms": call, "plain_ms": plain, "bound_ms": bound,
+                   "bound_by": "operations", "other_cases": []}
+        else:
+            row["other_cases"].append({
+                "case": f"K9 {(n, 3, h, w)}", "max_abs_err": err,
+                "call_ms": call, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": "operations"})
+        del args
+    row["launches"] = SEPCONV_PAIRS
+    row["launches_per_path"] = {"sepconv_video": SEPCONV_PAIRS}
+    torch.cuda.synchronize()
+    return launches, row
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3266,8 +3441,10 @@ def main() -> None:
     dormant_launches = {"dormant_ops": phase_dormant_ops(dev, card),
                         "vestigial_eval": phase_vestigial(dev, card)}
     phase_png_depths(dev, card)
-    print(f"[time] the dormant ops, vestigial and PNG phases checked and "
-          f"timed: {time.perf_counter() - t0:.1f} s")
+    sepconv_launches, k9_row = phase_sepconv(dev, card)
+    dormant_launches["sepconv_video"] = sepconv_launches
+    print(f"[time] the dormant ops, vestigial, PNG and SepConv phases "
+          f"checked and timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
     phase_bf16_stages(dev, eval_bf16, slowmo_bf16, i0, i2)
@@ -3302,6 +3479,7 @@ def main() -> None:
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
+    rows.append(k9_row)
     print(f"[time] chip_smoke.py took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -46,11 +46,13 @@ def _holder(name, child):
 
 
 def test_registry_has_jax_names():
-    assert set(M.MODEL_REGISTRY) == set(JM.MODEL_REGISTRY)
+    # the JAX package's two networks, and SepConv, which only the port runs
+    assert set(M.MODEL_REGISTRY) == set(JM.MODEL_REGISTRY) | {"SepConv"}
     assert M.MODEL_REGISTRY["DAIN"] is M.DAIN
     assert M.MODEL_REGISTRY["DAIN_slowmotion"] is M.DAINSlowMotion
+    assert M.MODEL_REGISTRY["SepConv"] is M.SepConv
     with pytest.raises(ValueError, match="net_name must be one of"):
-        M.build_model("SepConv")
+        M.build_model("SuperSloMo")
 
 
 @pytest.mark.parametrize("name,kwargs,cfg", [
@@ -111,7 +113,14 @@ def test_s2df_3dense_matches_jax():
 @pytest.mark.parametrize("name", ["DataConfig", "EvalConfig"])
 def test_data_and_eval_config_defaults_equal_jax(name):
     ours, theirs = getattr(C, name)(), getattr(JC, name)()
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    ours_d, theirs_d = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+    if name == "EvalConfig":
+        # the port's -1 (the last output) picks JAX's 1 of DAIN's two
+        # outputs (blend, rectified), and is SepConv's only one
+        assert ours_d.pop("save_which") == -1
+        assert ["blend", "rectified"][-1] == \
+            ["blend", "rectified"][theirs_d.pop("save_which")]
+    assert ours_d == theirs_d
     assert [f.name for f in dataclasses.fields(ours)] == \
         [f.name for f in dataclasses.fields(theirs)]
 

@@ -110,7 +110,7 @@ def test_model_config_round_trips_the_flags():
     with pytest.raises(ValueError, match="t = 0.5"):
         ModelConfig("DAIN", 0.25).build()
     with pytest.raises(ValueError, match="net_name"):
-        ModelConfig("SepConv").build()
+        ModelConfig("SuperSloMo").build()
 
 
 def test_apps_default_to_the_card():

@@ -212,5 +212,5 @@ def test_flag_errors(clip, tmp_path, capsys, case, match):
 
 def test_driver_defaults_to_the_card():
     args = interpolate_video.build_parser().parse_args(["--frames-dir", "x"])
-    assert args.device == "cuda" and args.save_which == 1
+    assert args.device == "cuda" and args.save_which == -1
     assert args.compute_dtype == "float32" and args.model == "DAIN"

@@ -12,7 +12,8 @@ last input written as frame ``n_in``; ``--video-out`` encodes a video at
 
 ``--model DAIN`` synthesises the middle frame (``--time-step 0.5`` only);
 ``--model DAIN_slowmotion`` synthesises ``1 / time_step - 1`` frames a
-pair.  ``--compute-dtype bfloat16`` selects the fast-eval lane.  The
+pair; ``--model SepConv`` (Niklaus et al., ICCV 2017) the middle frame, in
+float32.  ``--compute-dtype bfloat16`` selects the fast-eval lane.  The
 weights are random (seed 0) unless ``--torch-checkpoint`` (a reference
 ``.pth``) or ``--checkpoint`` (a checkpoint of the port's trainer) is
 given; both are read by ``vfidkr_torch.training.load_weights``, which loads
@@ -27,9 +28,10 @@ pads, so that each shard's H/n + 2 ``--halo`` rows keep the networks' /64.
 exchange (``vfidkr_torch.parallel.spatial``, one thread a shard): the first
 n cards, or n threads on the CPU with ``--device cpu``; like JAX's, it is
 the tiled approximation of the whole-frame forward, for frames that do not
-fit on one card.  ``outputs[--save-which]`` (0 the blend,
-1 the rectified) is unpadded, clipped to [0, 1] and rounded to the 8-bit
-grid on the device, and a pair's frames are copied to the host at once.
+fit on one card.  ``outputs[--save-which]`` (0 the blend, 1 the rectified;
+by default the network's last output: DAIN's rectified frames, SepConv's
+only one) is unpadded, clipped to [0, 1] and rounded to the 8-bit grid on
+the device, and a pair's frames are copied to the host at once.
 The forward runs under ``torch.inference_mode()``.  PNG frames are read
 and written without PIL (``vfidkr_torch.utils.image_io``); JPEG input needs
 PIL.  Decoding runs ahead on a prefetch thread
@@ -47,9 +49,9 @@ Left out of JAX's flags: ``--depth-impl packed`` (a TPU workaround).
 
 Usage:
   python -m vfidkr_torch.apps.interpolate_video --frames-dir in/ \\
-      --out-dir out/ [--time-step 0.25 --model DAIN_slowmotion] \\
-      [--compute-dtype bfloat16] [--torch-checkpoint best.pth] [--device cuda]
-      [--spatial-shards 2 --halo 64]
+      --out-dir out/ [--time-step 0.25 --model DAIN_slowmotion | --model
+      SepConv] [--compute-dtype bfloat16] [--torch-checkpoint best.pth]
+      [--device cuda] [--spatial-shards 2 --halo 64]
   python -m vfidkr_torch.apps.interpolate_video --video-in clip.mp4 \\
       --video-out out.mp4 --time-step 0.25 --model DAIN_slowmotion
 """
@@ -206,9 +208,11 @@ def main(argv=None) -> dict:
         ap.error("give exactly one input: --frames-dir or --video-in")
     if args.out_dir is None and args.video_out is None:
         ap.error("give at least one output: --out-dir and/or --video-out")
-    if args.model == "DAIN" and args.time_step != 0.5:
-        ap.error("DAIN supports --time-step 0.5 only (networks/DAIN.py:36); "
-                 "use --model DAIN_slowmotion for other rates")
+    try:
+        config = ModelConfig.from_args(args, net_name=args.model,
+                                       time_step=args.time_step)
+    except ValueError as err:
+        ap.error(str(err))
 
     def opencv(flag):
         try:
@@ -239,9 +243,7 @@ def main(argv=None) -> dict:
         os.makedirs(args.out_dir, exist_ok=True)
 
     device = torch.device(args.device)
-    model = ModelConfig.from_args(
-        args, net_name=args.model, time_step=args.time_step).build(
-        torch.Generator().manual_seed(0))
+    model = config.build(torch.Generator().manual_seed(0))
     ckpt = args.torch_checkpoint or args.checkpoint
     if ckpt:
         from vfidkr_torch.training import load_weights

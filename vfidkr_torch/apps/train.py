@@ -55,7 +55,7 @@ import torch
 
 
 def parse_args(argv=None):
-    from vfidkr_torch.config import (NET_NAMES, DataConfig, ModelConfig,
+    from vfidkr_torch.config import (TRAIN_NET_NAMES, DataConfig, ModelConfig,
                                      add_device_flag)
     from vfidkr_torch.training.train_state import TrainConfig
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -63,7 +63,7 @@ def parse_args(argv=None):
     ap.add_argument("--dataset-path", required=True)
     ap.add_argument("--save-path", required=True)
     ap.add_argument("--net-name", default=ModelConfig.net_name,
-                    choices=NET_NAMES)
+                    choices=TRAIN_NET_NAMES)
     ap.add_argument("--batch-size", type=int, default=DataConfig.batch_size)
     ap.add_argument("--num-epochs", type=int, default=50)
     ap.add_argument("--lr", type=float, default=TrainConfig.lr)

@@ -7,11 +7,12 @@ its time step and the compute dtype (``"bfloat16"`` is the fast-eval lane).
 The JAX package's implementation selectors (``filter_impl``,
 ``depth_impl``, ``steps_impl``, ``pwc_batch_chunk``, ``dense_impl``) are TPU
 workarounds that the port leaves behind.  ``DataConfig``, ``EvalConfig``
-and ``Config`` keep JAX's fields and defaults, with the port's
-``TrainConfig``, and are where the defaults in use live: the loader's crop
-and augmentation (``data/vimeo90k.py``), the trainer's flags (it builds a
-``Config`` from them, ``apps/train.make_config``), the eval apps'
-``--save-which`` and the frames' padding (``utils/padding.py``).
+and ``Config`` keep JAX's fields and defaults (but ``save_which``, -1 where
+JAX's is 1: the same one of DAIN's two outputs, and SepConv's only one),
+with the port's ``TrainConfig``, and are where the defaults in use live:
+the loader's crop and augmentation (``data/vimeo90k.py``), the trainer's
+flags (it builds a ``Config`` from them, ``apps/train.make_config``), the
+apps' ``--save-which`` and the frames' padding (``utils/padding.py``).
 
 Every app of the port runs on the card unless asked for the CPU:
 ``--device`` defaults to ``cuda`` (``add_device_flag``).
@@ -28,28 +29,48 @@ import torch
 if TYPE_CHECKING:
     from vfidkr_torch.training.train_state import TrainConfig
 
-NET_NAMES = ("DAIN", "DAIN_slowmotion")
+NET_NAMES = ("DAIN", "DAIN_slowmotion", "SepConv")
+# the networks the trainer trains (SepConv is evaluation only)
+TRAIN_NET_NAMES = ("DAIN", "DAIN_slowmotion")
+
+
+def _fixed_time_step(net_name: str) -> float | None:
+    """The one time step the network interpolates at (its class's
+    ``TIME_STEP``), or None where it takes any (or is not registered)."""
+    from vfidkr_torch.models import MODEL_REGISTRY
+    return getattr(MODEL_REGISTRY.get(net_name), "TIME_STEP", None)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """netName / time_step (``my_args.py:14-38``) and the compute dtype."""
+    """netName / time_step (``my_args.py:14-38``) and the compute dtype.  A
+    network that interpolates at one time step only (DAIN, SepConv: t = 0.5)
+    refuses any other."""
     net_name: str = "DAIN"
     time_step: float = 0.5
     compute_dtype: str = "float32"
 
+    def __post_init__(self):
+        fixed = _fixed_time_step(self.net_name)
+        if fixed is not None and self.time_step != fixed:
+            raise ValueError(f"{self.net_name} interpolates at t = {fixed} "
+                             f"only (--time-step {fixed} only); "
+                             f"DAIN_slowmotion takes other time steps")
+
     def build(self, generator: torch.Generator | None = None
               ) -> torch.nn.Module:
         """The model, with seeded random weights (``generator``), built by
-        ``models.build_model``."""
+        ``models.build_model``.  A network whose class sets
+        ``CUDNN_BENCHMARK`` (SepConv) turns cuDNN's autotuner on for the
+        process here, once, before any forward or shard thread runs."""
         from vfidkr_torch.models import build_model
         kwargs = dict(generator=generator, compute_dtype=self.compute_dtype)
-        if self.net_name == "DAIN":
-            if self.time_step != 0.5:
-                raise ValueError("DAIN interpolates at t = 0.5 only")
-        else:
+        if _fixed_time_step(self.net_name) is None:
             kwargs["timestep"] = self.time_step
-        return build_model(self.net_name, **kwargs)
+        model = build_model(self.net_name, **kwargs)
+        if getattr(model, "CUDNN_BENCHMARK", False):
+            torch.backends.cudnn.benchmark = True
+        return model
 
     @classmethod
     def from_args(cls, args, **overrides) -> "ModelConfig":
@@ -76,7 +97,9 @@ class DataConfig:
 class EvalConfig:
     """save_which and the padding policy (``my_args.py:40``;
     ``demo_MiddleBury.py:294``)."""
-    save_which: int = 1            # 0: blended, 1: rectified
+    # 0: blended, 1: rectified; -1, the last, is DAIN's rectified frame and
+    # SepConv's one output
+    save_which: int = -1
     pad_multiple: int = 128
     min_pad: int = 32
 
@@ -89,7 +112,7 @@ def _train_config() -> "TrainConfig":
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    model: ModelConfig = ModelConfig()
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = DataConfig()
     train: "TrainConfig" = dataclasses.field(default_factory=_train_config)
     eval: EvalConfig = EvalConfig()
@@ -131,7 +154,9 @@ def build_eval_model(args) -> torch.nn.Module:
 
 def add_save_which_flag(ap) -> None:
     ap.add_argument("--save-which", type=int, default=EvalConfig.save_which,
-                    help="0: blended output, 1: rectified")
+                    help="0: blended output, 1: rectified; default -1, the "
+                         "network's last output (DAIN's rectified frame, "
+                         "SepConv's only one)")
 
 
 def add_device_flag(ap) -> None:

@@ -61,6 +61,9 @@ SIGNATURES = {
     "vfidkr_fused_resblocks": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, w, b, out, n, c, h, w, stream (launched by ops/conv_head.py)
     "vfidkr_rectify_head": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # i0, v1, h1, i2, v2, h2, out, n, h, w, stream (launched by
+    # ops/separable_conv.py)
+    "vfidkr_sepconv_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -1,6 +1,7 @@
-"""DAIN and DAIN_slowmotion networks, NCHW (see
+"""DAIN, DAIN_slowmotion and SepConv networks, NCHW (see
 ``vfidkr_torch/__init__.py``), and the name-keyed model lookup of
-``vfidkr_tpu/models/__init__.py`` (reference ``networks/__init__.py``)."""
+``vfidkr_tpu/models/__init__.py`` (reference ``networks/__init__.py``),
+which adds SepConv to the JAX package's two."""
 
 from vfidkr_torch.models.dain import DAIN, DAINSlowMotion
 from vfidkr_torch.models.megadepth import MegaDepthHourglass
@@ -9,10 +10,12 @@ from vfidkr_torch.models.pwcnet import PWCDCNet
 from vfidkr_torch.models.resblock import (MultipleBasicBlock, ResBasicBlock,
                                           multiple_basic_block_4)
 from vfidkr_torch.models.s2df import S2DF, s2df_3dense
+from vfidkr_torch.models.sepconv import SepConv
 
 MODEL_REGISTRY = {
     "DAIN": DAIN,
     "DAIN_slowmotion": DAINSlowMotion,
+    "SepConv": SepConv,
 }
 
 
@@ -27,5 +30,6 @@ def build_model(name: str, **kwargs):
 
 __all__ = ["DAIN", "DAINSlowMotion", "BranchHead", "MegaDepthHourglass",
            "MonoNet5", "MultipleBasicBlock", "PWCDCNet", "ResBasicBlock",
-           "S2DF", "multiple_basic_block_4", "s2df_3dense", "MODEL_REGISTRY",
+           "S2DF", "SepConv", "multiple_basic_block_4", "s2df_3dense",
+           "MODEL_REGISTRY",
            "build_model"]

@@ -84,6 +84,9 @@ VESTIGIAL = ("initOcclusion", "initDeconv_field", "ctxNet")
 
 
 class DAIN(nn.Module):
+    # the only time step it interpolates at (``ModelConfig`` checks it)
+    TIME_STEP = TIMESTEP
+
     def __init__(self, generator: torch.Generator | None = None,
                  compute_dtype: str = "float32", init_unused: bool = True):
         super().__init__()

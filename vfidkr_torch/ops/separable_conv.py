@@ -1,6 +1,6 @@
 """SepConv-family ops, NCHW: counterpart of
-``vfidkr_tpu/ops/separable_conv.py`` (the reference builds and tests them;
-no model calls them).
+``vfidkr_tpu/ops/separable_conv.py`` (the reference builds and tests the
+first two; no DAIN model calls them), and SepConv's local convolution.
 
 * ``separable_conv``
   (``my_package/SeparableConv/separableconv_cuda_kernel.cu:40-80``):
@@ -15,13 +15,35 @@ no model calls them).
 
 Both are plain PyTorch on every device, not a fallback: the JAX package
 computes them with static slices, not a Pallas kernel.
+
+* ``separable_conv_pair`` (SepConv's output, ``models/sepconv.py``):
+  ``separable_conv(pad(i0), v1, h1) + separable_conv(pad(i2), v2, h2)``,
+  each frame replication-padded by ``fs // 2``, so the output has the
+  frames' size.  On CUDA tensors it launches the kernel K9 ``sepconv_pair``
+  (``vfidkr_torch/csrc/sepconv_pair.cu``: both frames and their sum in one
+  launch, the frames read in place with clamped coordinates, true float32
+  on the CUDA cores; three channels and 51 taps, SepConv's); on CPU tensors
+  it runs ``separable_conv_pair_plain``.  K9 has no backward: on a CUDA
+  input that needs a gradient it raises.  ``LAUNCHES`` counts K9's
+  launches (raised under a lock: the video driver's row shards launch from
+  threads); K9 is launched here and not through
+  ``vfidkr_torch.kernels.launch``: it is not one of ``kernels.KERNELS``.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
+import torch.nn.functional as F
+
+from vfidkr_torch.kernels import build
 
 SENTINEL = -2000.0
+K9_CHANNELS, K9_TAPS = 3, 51
+
+LAUNCHES = 0
+_LOCK = threading.Lock()
 
 
 def _check_filters(vert, horiz):
@@ -64,3 +86,71 @@ def separable_conv_flow(vert: torch.Tensor,
         return torch.where(s.abs() > 0, val, SENTINEL)
 
     return torch.stack([expected(horiz), expected(vert)], 1)
+
+
+def _check_pair(i0, v1, h1, i2, v2, h2) -> None:
+    if i0.dim() != 4 or i0.numel() == 0 or tuple(i2.shape) != tuple(i0.shape):
+        raise ValueError(f"i0 and i2 must be one non-empty (N,C,H,W) shape, "
+                         f"got {tuple(i0.shape)} and {tuple(i2.shape)}")
+    n, _, h, w = i0.shape
+    fs = v1.shape[1] if v1.dim() == 4 else 0
+    for name, f in (("v1", v1), ("h1", h1), ("v2", v2), ("h2", h2)):
+        if tuple(f.shape) != (n, fs, h, w):
+            raise ValueError(f"{name} must be (N, fs, H, W) = "
+                             f"{(n, fs, h, w)}, got {tuple(f.shape)}")
+    if fs % 2 == 0:
+        raise ValueError(f"the filters need an odd number of taps, got {fs}")
+    tensors = (i0, v1, h1, i2, v2, h2)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("separable_conv_pair: tensors on different devices")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("separable_conv_pair: float32 tensors only")
+
+
+def separable_conv_pair_plain(i0, v1, h1, i2, v2, h2) -> torch.Tensor:
+    """Plain PyTorch version: both frames through ``separable_conv`` after
+    a replication pad of ``fs // 2``, then summed."""
+    p = v1.shape[1] // 2
+    pad = lambda x: F.pad(x, (p, p, p, p), mode="replicate")
+    return separable_conv(pad(i0), v1, h1) + separable_conv(pad(i2), v2, h2)
+
+
+def _launch(i0, v1, h1, i2, v2, h2) -> torch.Tensor:
+    global LAUNCHES
+    n, c, h, w = i0.shape
+    fs = v1.shape[1]
+    if c != K9_CHANNELS or fs != K9_TAPS:
+        raise ValueError(f"sepconv_pair: K9 takes {K9_CHANNELS} channels and "
+                         f"{K9_TAPS} taps, got {c} and {fs}")
+    tensors = (i0, v1, h1, i2, v2, h2)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sepconv_pair: contiguous tensors only")
+    out = torch.empty_like(i0)
+    fn = build.load_library().vfidkr_sepconv_pair
+    with torch.cuda.device(i0.device):
+        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), n, h, w,
+                 torch.cuda.current_stream(i0.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sepconv_pair: CUDA launch failed with error "
+                           f"{err}")
+    with _LOCK:
+        LAUNCHES += 1
+    return out
+
+
+def separable_conv_pair(i0: torch.Tensor, v1: torch.Tensor, h1: torch.Tensor,
+                        i2: torch.Tensor, v2: torch.Tensor,
+                        h2: torch.Tensor) -> torch.Tensor:
+    """Frames i0, i2 (N,C,H,W) and their per-pixel filters v1, h1, v2, h2
+    (N,fs,H,W), fs odd -> (N,C,H,W): ``out[c, y, x] = sum over both frames
+    of sum_{j, i} P[c, y + j, x + i] * v[j, y, x] * h[i, y, x]``, ``P`` the
+    frame replication-padded by ``fs // 2``.  K9 on CUDA tensors, the plain
+    version on CPU tensors."""
+    _check_pair(i0, v1, h1, i2, v2, h2)
+    if i0.device.type == "cpu":
+        return separable_conv_pair_plain(i0, v1, h1, i2, v2, h2)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (i0, v1, h1, i2, v2, h2)):
+        raise RuntimeError("sepconv_pair: K9 has no backward; the CUDA path "
+                           "is evaluation only")
+    return _launch(i0, v1, h1, i2, v2, h2)
