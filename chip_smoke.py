@@ -148,6 +148,17 @@ session comes last (7), since host-bound timings read slower after one:
    and its time a call (CUDA events), its plain version's and its bound
    (benchmark/lib/local_conv.bound_s); cuDNN's autotuner flag, which the
    model's build turns on, restored after;
+5o. dense_conv: K10, PWC-Net's dense-block convs, once a conv in a DAIN
+   forward (25 launches, nothing of kernels.KERNELS); then at levels 2 and 3
+   of cells 1 and 4 (a 512x320 pair), 2 (1344x768), 3 (B = 3 at 256x448,
+   both directions: batch 6) and level 2 of cell 5 (batch 80): the level's
+   five convs through its buffer, each against float64 within DENSE_TOL of
+   the sum of |x||w| + |b| on the input it read, the level twice bit for
+   bit, and timed by CUDA events (median of 20 runs of 5 levels) beside its
+   bound (benchmark/lib/flow_dense.conv_work), the plain version (cuDNN's
+   leaky_relu(conv2d) and torch.cat, as the port ran before, cudnn.benchmark
+   off) and the same with cudnn.benchmark on (library_ms, never called by
+   the port); a level where K10 is not the fastest is printed as such;
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -234,6 +245,7 @@ from vfidkr_torch.models.layers import upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
 from vfidkr_torch.ops import conv_head as CH
+from vfidkr_torch.ops import dense_conv as DC
 from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.ops import rectify as RB
@@ -257,6 +269,7 @@ import torch_png  # noqa: E402
 # the SepConv cell's configuration and weights, and K9's bound
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from benchmark.lib.cell import load_json  # noqa: E402
+from benchmark.lib.flow_dense import DENSE, OD, conv_work  # noqa: E402
 from benchmark.lib.local_conv import bound_s  # noqa: E402
 from benchmark.lib.weights import make_state, shapes_of  # noqa: E402
 
@@ -334,6 +347,14 @@ SEPCONV_HW, SEPCONV_PADDED, SEPCONV_PAIRS = (1080, 1920), (1152, 1984), 3
 SEPCONV_CPU_HW, SEPCONV_CPU_ATOL = (128, 192), 1e-4
 K9_SHAPES = ((1, 1152, 1984), (2, 37, 75))
 K9_TOL = 2e-6
+# the dense_conv phase: (cell, batch, level, map) of PWC-Net's decode (both
+# directions of the cell's batch, the padded frame at 1/2^level); K10's
+# tolerance as K8's (float32 sums in another order read 1.4-4.7e-7)
+DENSE_SHAPES = (("cells 1, 4", 2, 2, (80, 128)), ("cells 1, 4", 2, 3, (40, 64)),
+                ("cell 2", 2, 2, (192, 336)), ("cell 2", 2, 3, (96, 168)),
+                ("cell 3", 6, 2, (64, 112)), ("cell 3", 6, 3, (32, 56)),
+                ("cell 5", 80, 2, (64, 112)))
+DENSE_TOL = 2e-6
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -3401,6 +3422,143 @@ def phase_sepconv(dev: torch.device, card: str) -> tuple[dict, dict]:
     return launches, row
 
 
+def _dense_inputs(n, h, w, od, seed):
+    """A level's input in [-1, 1), its five convs' weights at the init's
+    scale (normal, std sqrt(2 / (9 Cin))) and biases of +-0.01, on the
+    card."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, od, h, w, generator=g) * 2 - 1
+    ws, bs, cin = [], [], od
+    for cout in DENSE:
+        ws.append(torch.randn(cout, cin, 3, 3, generator=g)
+                  * (2.0 / (9 * cin)) ** 0.5)
+        bs.append(torch.randn(cout, generator=g) * 0.01)
+        cin += cout
+    dev = torch.device("cuda")
+    return x.to(dev), [t.to(dev) for t in ws], [t.to(dev) for t in bs]
+
+
+def dense_level(x, ws, bs, conv=None):
+    """A level's dense block as ``PWCDCNet._dense`` runs it without
+    autograd: one buffer, the input at its tail, each conv into the slot
+    before its input; with ``conv`` (a plain function) the block as it ran
+    before, each output joined by ``torch.cat``."""
+    if conv is not None:
+        for wt, b in zip(ws, bs):
+            x = torch.cat([conv(x, wt, b), x], 1)
+        return x
+    n, od, h, w = x.shape
+    buf = x.new_empty((n, sum(DENSE) + od, h, w))
+    buf[:, sum(DENSE):].copy_(x)
+    start = sum(DENSE)
+    for wt, b in zip(ws, bs):
+        DC.dense_conv_into(buf, start, wt, b)
+        start -= wt.shape[0]
+    return buf
+
+
+def cudnn_dense_benchmarked(x, wt, b):
+    """K10's yardstick: cuDNN's float32 leaky_relu(conv2d) with
+    cudnn.benchmark on (its choice among algorithms, made on the first call
+    of a shape)."""
+    torch.backends.cudnn.benchmark = True
+    try:
+        return DC.dense_conv_plain(x, wt, b)
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+
+def _compare_k10(label, buf, again, ws, bs) -> float:
+    """Each conv of a level against float64 on the input it read: its error
+    over the float64 sum of |x||w| + |b| at most DENSE_TOL; the level run
+    twice bit for bit.  Returns the largest error over the sum."""
+    worst, start = 0.0, sum(DENSE)
+    for wt, b in zip(ws, bs):
+        cout, cin = wt.shape[:2]
+        xd, wd, bd = buf[:, start:start + cin].double(), wt.double(), b.double()
+        want = F.leaky_relu(F.conv2d(xd, wd, bd, padding=1), DC.SLOPE)
+        scale = F.conv2d(xd.abs(), wd.abs(), bd.abs(), padding=1)
+        worst = max(worst, ((buf[:, start - cout:start].double() - want).abs()
+                            / scale).max().item())
+        del xd, want, scale
+        start -= cout
+    same = torch.equal(buf, again)
+    print(f"[kernels] dense_conv K10 {label}: error over sum |x||w| + |b| "
+          f"{worst:.3e} against float64 (tolerance {DENSE_TOL:.0e}); two "
+          f"runs {'bit-equal' if same else 'DIFFER'}")
+    if not (worst <= DENSE_TOL and same):
+        raise AssertionError(f"dense_conv {label}: failed its check")
+    return worst
+
+
+def phase_dense_conv(dev: torch.device, card: str) -> dict:
+    """K10's launches in a DAIN forward, then K10 at the cells' levels
+    against float64 and timed beside its bound, the plain version and
+    cuDNN autotuned.  Returns K10's row of the kernels line."""
+    model = make_model().to(dev).eval()
+    g = torch.Generator().manual_seed(20)
+    i0, i2 = make_frames(g)
+    kernels.reset_launches()
+    before = DC.LAUNCHES
+    with torch.inference_mode():
+        model(i0.to(dev), i2.to(dev))
+    torch.cuda.synchronize()
+    print(f"[dense] a DAIN forward at {W}x{H}: dense_conv {DC.LAUNCHES - before}"
+          f" launches, the port's others {dict(kernels.LAUNCHES)}")
+    if DC.LAUNCHES - before != 25:
+        raise AssertionError(f"dense_conv launched {DC.LAUNCHES - before} "
+                             f"times in a DAIN forward")
+    _check_launches("eval_forward", dict(kernels.LAUNCHES))
+    del model
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row, slower = None, []
+    for cell, n, lvl, (h, w) in DENSE_SHAPES:
+        x, ws, bs = _dense_inputs(n, h, w, OD[lvl], seed=lvl)
+        label = f"{cell} level {lvl} ({n},{OD[lvl]},{h},{w})"
+        with torch.inference_mode():
+            buf, again = dense_level(x, ws, bs), dense_level(x, ws, bs)
+            err = _compare_k10(label, buf, again, ws, bs)
+            del buf, again
+            k10 = statistics.median(cuda_times_ms(
+                lambda: dense_level(x, ws, bs), warmup=3, iters=20, inner=5))
+            plain = statistics.median(cuda_times_ms(
+                lambda: dense_level(x, ws, bs, DC.dense_conv_plain),
+                warmup=3, iters=20, inner=5))
+            tuned = statistics.median(cuda_times_ms(
+                lambda: dense_level(x, ws, bs, cudnn_dense_benchmarked),
+                warmup=3, iters=20, inner=5))
+        work = [conv_work(n, wt.shape[1], wt.shape[0], h, w) for wt in ws]
+        bound = sum(max(nb / HBM_BYTES_S, ops / F32_FLOP_S)
+                    for nb, ops in work) * 1e3
+        plans = [DC.plan(n, h, w, wt.shape[1], wt.shape[0], sms) for wt in ws]
+        print(f"[times] K10 {label} (dense_conv, five convs, tile rows and "
+              f"split {plans}): per level {k10:.4f} ms with the wrapper (CUDA "
+              f"events, median of 20 runs of 5), plain (cuDNN, "
+              f"cudnn.benchmark off, and torch.cat) {plain:.4f} ms, cuDNN "
+              f"autotuned {tuned:.4f} ms; bound {bound:.4f} ms by "
+              f"operations: {bound / k10:.1%} of it, on {card}")
+        if k10 >= min(plain, tuned):
+            slower.append(label)
+        case = {"case": f"K10 {label}", "max_abs_err": err, "call_ms": k10,
+                "plain_ms": plain, "library_ms": tuned, "bound_ms": bound,
+                "bound_by": "operations"}
+        if row is None:
+            row = {"name": "dense_conv", "route": "cuda",
+                   "source": "vfidkr_torch/csrc/dense_conv.cu",
+                   "replaces": "none: cuDNN's conv, LeakyReLU and torch.cat "
+                               "(vfidkr_tpu/models/pwcnet.py:71-79 is XLA)",
+                   **case, "other_cases": []}
+        else:
+            row["other_cases"].append(case)
+        del x, ws, bs
+    print(f"[dense] levels where K10 is not the fastest: {slower or 'none'}")
+    row["launches"] = 25
+    row["launches_per_path"] = {"eval_forward": 25}
+    torch.cuda.synchronize()
+    return row
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3443,7 +3601,9 @@ def main() -> None:
     phase_png_depths(dev, card)
     sepconv_launches, k9_row = phase_sepconv(dev, card)
     dormant_launches["sepconv_video"] = sepconv_launches
-    print(f"[time] the dormant ops, vestigial, PNG and SepConv phases "
+    k10_row = phase_dense_conv(dev, card)
+    print(f"[time] the dormant ops, vestigial, PNG, SepConv and dense_conv "
+          f"phases "
           f"checked and timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
@@ -3480,6 +3640,7 @@ def main() -> None:
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
     rows.append(k9_row)
+    rows.append(k10_row)
     print(f"[time] chip_smoke.py took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

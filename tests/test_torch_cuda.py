@@ -824,3 +824,236 @@ def test_rectify_head_rejects_bad_inputs(dev):
         CH.rectify_head(x, wt[:, :, :3, :3].contiguous(), b)
     with pytest.raises(ValueError, match="different devices"):
         CH.rectify_head(x, wt.cpu(), b)
+
+
+# K10, PWC-Net's dense-block convs: each value against float64, its error over
+# the float64 sum of |x||w| + |b| (the scale a float32 sum of those terms
+# rounds within), as K8's.
+DENSE_TOL = 2e-6
+_DENSE_OD = {6: 81, 5: 213, 4: 181, 3: 149, 2: 117}
+# each level's map of a bidirectional decode (batch 2): cells 1 and 4 (a
+# 512 x 320 pair) and cell 2 (1344 x 768)
+_DENSE_LEVELS = ([("cells 1, 4", 2, lvl, 320 >> lvl, 512 >> lvl)
+                  for lvl in (2, 3, 4, 5, 6)]
+                 + [("cell 2", 2, lvl, 768 >> lvl, 1344 >> lvl)
+                    for lvl in (2, 3, 4, 5, 6)])
+
+
+def _dense_inputs(n, h, w, od, seed):
+    """A level's input in [-1, 1), its five convs' weights at the init's
+    scale (normal, std sqrt(2 / (9 Cin))) and biases of +-0.01."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, od, h, w, generator=g) * 2 - 1
+    ws, bs, cin = [], [], od
+    for cout in (128, 128, 96, 64, 32):
+        ws.append(torch.randn(cout, cin, 3, 3, generator=g)
+                  * (2.0 / (9 * cin)) ** 0.5)
+        bs.append(torch.randn(cout, generator=g) * 0.01)
+        cin += cout
+    return x, ws, bs
+
+
+def _dense_level(x, ws, bs):
+    """The level's buffer as ``PWCDCNet._dense`` fills it without autograd."""
+    from vfidkr_torch.ops import dense_conv as DC
+    n, od, h, w = x.shape
+    buf = x.new_empty((n, 448 + od, h, w))
+    buf[:, 448:].copy_(x)
+    start = 448
+    for wt, b in zip(ws, bs):
+        DC.dense_conv_into(buf, start, wt, b)
+        start -= wt.shape[0]
+    return buf
+
+
+def _dense_errors(buf, ws, bs):
+    """Each conv's largest error over the sum of |terms|, against float64 on
+    the input the conv read."""
+    import torch.nn.functional as F
+    errs, start = [], 448
+    for wt, b in zip(ws, bs):
+        cout, cin = wt.shape[:2]
+        xd, wd, bd = buf[:, start:start + cin].double(), wt.double(), b.double()
+        want = F.leaky_relu(F.conv2d(xd, wd, bd, padding=1), 0.1)
+        scale = F.conv2d(xd.abs(), wd.abs(), bd.abs(), padding=1)
+        got = buf[:, start - cout:start].double()
+        errs.append(((got - want).abs() / scale).max().item())
+        start -= cout
+    return errs
+
+
+@pytest.mark.parametrize("cell,n,lvl,h,w", _DENSE_LEVELS)
+def test_dense_conv_kernel(dev, cell, n, lvl, h, w):
+    """K10 at each level of cells 1, 4 and 2: the five convs through the
+    level's buffer, each held to float64 on the input it read, one launch a
+    conv and nothing of ``kernels.KERNELS``; the level run twice gives the
+    same bits (split tiles at cells 1 and 4's levels 3 to 6, unsplit at
+    cell 2's level 2)."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import dense_conv as DC
+    x, ws, bs = _dense_inputs(n, h, w, _DENSE_OD[lvl], seed=30 + lvl)
+    x, ws, bs = x.to(dev), [t.to(dev) for t in ws], [t.to(dev) for t in bs]
+    before, others = DC.LAUNCHES, dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        buf = _dense_level(x, ws, bs)
+        again = _dense_level(x, ws, bs)
+    torch.cuda.synchronize()
+    assert DC.LAUNCHES == before + 10 and kernels.LAUNCHES == others
+    assert torch.equal(buf, again)
+    assert torch.equal(buf[:, 448:], x)
+    errs = _dense_errors(buf, ws, bs)
+    assert max(errs) <= DENSE_TOL, (cell, lvl, errs)
+    assert bool((buf[:, :448] < 0).any()) and bool((buf[:, :448] > 0).any())
+
+
+def test_dense_conv_splits_and_fresh_outputs(dev):
+    """The split follows the shape: cells 1 and 4's level 3 takes a cluster,
+    cell 2's level 2 none, and each is bit-stable over three runs; the
+    fresh-output call gives the buffer call's bits, a ragged frame (W % 4 !=
+    0, batch 3) included."""
+    import torch.nn.functional as F
+    from vfidkr_torch.ops import dense_conv as DC
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert DC.plan(2, 40, 64, 149, 128, sms)[1] > 1
+    assert DC.plan(2, 192, 336, 117, 128, sms)[1] == 1
+    for n, h, w, lvl in ((2, 40, 64, 3), (2, 192, 336, 2), (3, 37, 75, 4)):
+        x, ws, bs = _dense_inputs(n, h, w, _DENSE_OD[lvl], seed=40 + lvl)
+        x, ws, bs = x.to(dev), [t.to(dev) for t in ws], [t.to(dev) for t in bs]
+        with torch.inference_mode():
+            runs = [_dense_level(x, ws, bs) for _ in range(3)]
+            buf = runs[0]
+            fresh = DC.dense_conv(buf[:, 448:].contiguous(), ws[0], bs[0])
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+        assert torch.equal(fresh, buf[:, 320:448])
+        assert max(_dense_errors(buf, ws, bs)) <= DENSE_TOL
+        plain = F.leaky_relu(F.conv2d(buf[:, 448:], ws[0], bs[0], padding=1),
+                             0.1)
+        assert (plain - fresh).abs().max().item() <= ATOL
+
+
+def test_dain_launches_dense_conv_25_times(dev):
+    """A DAIN forward launches K10 once a dense conv, 25 times, without
+    autograd and under it, and its output is the CPU run's."""
+    import copy
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import DAIN
+    from vfidkr_torch.ops import dense_conv as DC
+    g = torch.Generator().manual_seed(2)
+    model = DAIN(generator=g).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+        model.flownets.dc_conv7.bias.add_(torch.tensor([0.37, -0.21]))
+    i0 = torch.rand(1, 3, 64, 128, generator=g)
+    i2 = torch.rand(1, 3, 64, 128, generator=g)
+    cpu = copy.deepcopy(model)
+    gpu = model.to(dev)
+    kernels.reset_launches()
+    before = DC.LAUNCHES
+    with torch.inference_mode():
+        got = gpu.flownets(i0.to(dev), i2.to(dev))
+        torch.cuda.synchronize()
+        assert DC.LAUNCHES == before + 25
+        gpu(i0.to(dev), i2.to(dev))
+        torch.cuda.synchronize()
+        assert DC.LAUNCHES == before + 50
+        want = cpu.flownets(i0, i2)
+    traced = gpu.flownets(i0.to(dev), i2.to(dev))
+    traced.sum().backward()
+    torch.cuda.synchronize()
+    assert DC.LAUNCHES == before + 75
+    assert gpu.flownets.conv2_4[0].weight.grad is not None
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
+
+
+def test_dense_conv_gradients_match_cudnn(dev):
+    """Under autograd K10's Function gives the input, weight and bias
+    gradients of cuDNN's autograd of ``leaky_relu(conv2d)`` within 1e-5 of
+    each gradient's largest magnitude: its backward is the same two nodes,
+    ``leaky_relu_backward`` and ``convolution_backward`` on the saved
+    tensors.  A frozen input gets no gradient."""
+    import torch.nn.functional as F
+    from vfidkr_torch.ops import dense_conv as DC
+    x, ws, bs = _dense_inputs(2, 40, 64, _DENSE_OD[3], seed=17)
+    cot = torch.randn(2, 128, 40, 64,
+                      generator=torch.Generator().manual_seed(18)).to(dev)
+    leaves = [t.to(dev).requires_grad_() for t in (x, ws[0], bs[0])]
+    ref = [t.detach().clone().requires_grad_() for t in leaves]
+    before = DC.LAUNCHES
+    out = DC.dense_conv(*leaves)
+    assert DC.LAUNCHES == before + 1
+    assert type(out.grad_fn).__name__ == "_LeakyReluOfOutputBackward"
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == \
+        "_DenseConvBackward"
+    want = F.leaky_relu(F.conv2d(ref[0], ref[1], ref[2], padding=1), 0.1)
+    assert torch.equal(out > 0, want > 0)
+    got_g = torch.autograd.grad((out * cot).sum(), leaves)
+    want_g = torch.autograd.grad((want * cot).sum(), ref)
+    for name, a, e in zip("xwb", got_g, want_g):
+        err = (a - e).abs().max().item()
+        assert err <= 1e-5 * e.abs().max().item(), (name, err)
+    frozen = DC.dense_conv(leaves[0].detach(), *leaves[1:])
+    gw, gb = torch.autograd.grad((frozen * cot).sum(), leaves[1:])
+    assert torch.allclose(gw, got_g[1], rtol=0,
+                          atol=1e-5 * gw.abs().max().item())
+
+
+def test_dense_conv_train_step_matches_cudnn_path(dev, monkeypatch):
+    """A DAIN train step with K10 in PWC-Net against the same step with the
+    dense convs on cuDNN (the plain version on the card), within the
+    training cell's check limits: the loss within 3e-6 relative, each
+    leaf's gradient norm within 1.5e-4 of the larger of its reference norm
+    and the median leaf's."""
+    import copy
+    import statistics
+    from vfidkr_torch.models import DAIN, pwcnet
+    from vfidkr_torch.ops import dense_conv as DC
+    from vfidkr_torch.training import TrainConfig, make_optimizer, train_step
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(23)
+    model = DAIN(generator=g, init_unused=False)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+        model.flownets.dc_conv7.bias.add_(torch.tensor([0.37, -0.21]))
+    batch = {k: F.interpolate(torch.rand(2, 3, 16, 32, generator=g),
+                              size=(64, 128), mode="bilinear",
+                              align_corners=False).to(dev)
+             for k in ("x0", "x1", "y")}
+    k10 = model.to(dev)
+    cudnn = copy.deepcopy(k10)
+    config = TrainConfig()
+    before = DC.LAUNCHES
+    got = train_step(k10, make_optimizer(k10, config), batch, config)
+    assert DC.LAUNCHES == before + 25
+    monkeypatch.setattr(pwcnet, "dense_conv", DC.dense_conv_plain)
+    want = train_step(cudnn, make_optimizer(cudnn, config), batch, config)
+    assert DC.LAUNCHES == before + 25
+    torch.cuda.synchronize()
+    loss, ref = got["total"].item(), want["total"].item()
+    assert abs(loss - ref) <= 3e-6 * abs(ref), (loss, ref)
+    norms = {n: (a.grad.norm().item(), b.grad.norm().item())
+             for (n, a), b in zip(k10.named_parameters(), cudnn.parameters())
+             if b.grad is not None}
+    median = statistics.median(r for _, r in norms.values())
+    gaps = {n: abs(a - r) / max(r, median) for n, (a, r) in norms.items()}
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= 1.5e-4, (worst, gaps[worst])
+
+
+def test_dense_conv_rejects_bad_inputs(dev):
+    from vfidkr_torch.ops import dense_conv as DC
+    x, ws, bs = _dense_inputs(1, 8, 16, 13, seed=1)
+    x, wt, b = x.to(dev), ws[0].to(dev), bs[0].to(dev)
+    with pytest.raises(TypeError, match="float32"):
+        DC.dense_conv(x.half(), wt, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        DC.dense_conv(x.transpose(2, 3), wt, b)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        DC.dense_conv(x, wt[:48].contiguous(), b[:48].contiguous())
+    with pytest.raises(ValueError, match="different devices"):
+        DC.dense_conv(x, wt.cpu(), b)
+    buf = torch.zeros(1, 128 + 13, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="autograd"):
+        DC.dense_conv_into(buf, 128, wt.requires_grad_(), b)

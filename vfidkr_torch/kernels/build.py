@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vfidkr_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes: device pointers, int sizes, then the stream.
 SIGNATURES = {
     # image, flow, filt, out, n, c, h, w, row0, hg, stream; row0 and hg place
@@ -64,6 +64,10 @@ SIGNATURES = {
     # i0, v1, h1, i2, v2, h2, out, n, h, w, stream (launched by
     # ops/separable_conv.py)
     "vfidkr_sepconv_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, x's batch stride, w, b, out, out's batch stride, n, cin, cout, h, w,
+    # tile rows, split, stream (launched by ops/dense_conv.py)
+    "vfidkr_dense_conv": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 _LIB = None

@@ -11,6 +11,9 @@ checkpoint (``conv1a.0.weight`` ... ``dc_conv7.weight``).  The reference's
   image's features, warped by the upsampled coarser flow -> LeakyReLU -> a
   DenseNet block of 5 convs (128/128/96/64/32, newest output first) -> a
   2-channel flow -> 4x4/s2 deconvs of the flow and of a 2-channel feature;
+  each dense conv with its LeakyReLU is ``ops.dense_conv`` (the kernel K10
+  on the card); without autograd a level writes its five outputs straight
+  into one buffer in the joined channel order, with no ``torch.cat``;
 - a 7-conv dilated context network refines the finest flow;
 - the output flow is at 1/4 of the input resolution and 1/20 of the pixel
   flow.
@@ -31,10 +34,12 @@ from torch import nn
 
 from vfidkr_torch.models.layers import conv, deconv, leaky_relu
 from vfidkr_torch.ops import correlation_cost_volume, pwc_warp
+from vfidkr_torch.ops.dense_conv import dense_conv, dense_conv_into
 from vfidkr_torch.utils.profiling import span
 
 MD = 4                          # cost-volume max displacement
 _DENSE = (128, 128, 96, 64, 32)
+_DENSE_OUT = sum(_DENSE)        # channels the dense block adds to its input
 _NCORR = (2 * MD + 1) ** 2
 # decoder input channels per level: cost volume + own features + upsampled
 # flow and feature of the coarser level
@@ -101,9 +106,26 @@ class PWCDCNet(nn.Module):
         return leaky_relu(correlation_cost_volume(a, b, MD), 0.1)
 
     def _dense(self, lvl, x):
-        for i in range(len(_DENSE)):
-            x = torch.cat([getattr(self, f"conv{lvl}_{i}")(x), x], 1)
-        return x
+        """(N, od, H, W) -> (N, od + 448, H, W): each conv's output joined
+        before its input, newest first.  Under autograd each conv's output
+        is a fresh tensor and joined by ``torch.cat``; without, one buffer
+        holds the level's input at its tail and each conv reads the
+        buffer's channel suffix and writes the slot just before it."""
+        convs = [getattr(self, f"conv{lvl}_{i}")[0]
+                 for i in range(len(_DENSE))]
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for c in convs for p in (c.weight, c.bias))):
+            for c in convs:
+                x = torch.cat([dense_conv(x, c.weight, c.bias), x], 1)
+            return x
+        n, od, h, w = x.shape
+        buf = x.new_empty((n, _DENSE_OUT + od, h, w))
+        buf[:, _DENSE_OUT:].copy_(x)
+        start = _DENSE_OUT
+        for c in convs:
+            dense_conv_into(buf, start, c.weight, c.bias)
+            start -= c.out_channels
+        return buf
 
     def _decode(self, pyr1, pyr2):
         with span("vfidkr/flow/cost_volume"):
