@@ -139,9 +139,9 @@ session comes last (7), since host-bound timings read slower after one:
 5n. sepconv: SepConv (ModelConfig("SepConv"), the SepConv cell's weights
    from benchmark/configs/sepconv.json, seed 0): its forward on the card
    held to the CPU at 192x128; the video driver's to_input and
-   frames_between on a 1920x1080 clip run at 1984x1152 (padded), with
-   separable_conv.LAUNCHES set to 0 just before: K9 (sepconv_pair) once a
-   pair and no other kernel of the port, (1, 1080, 1920, 3) uint8 frames,
+   frames_between on a 1920x1080 clip run at 1984x1152 (padded): K9
+   (sepconv_pair) once a pair and no other kernel of the port
+   (PATHS["sepconv_video"]), (1, 1080, 1920, 3) uint8 frames,
    the pairs' host time; then K9 against its plain version in float64 at
    (1,3,1152,1984) and at the ragged (2,3,37,75), each value within K9_TOL
    of the float64 sum of its terms' magnitudes, two launches bit for bit,
@@ -149,7 +149,7 @@ session comes last (7), since host-bound timings read slower after one:
    (benchmark/lib/local_conv.bound_s); cuDNN's autotuner flag, which the
    model's build turns on, restored after;
 5o. dense_conv: K10, PWC-Net's dense-block convs, once a conv in a DAIN
-   forward (25 launches, nothing of kernels.KERNELS); then at levels 2 and 3
+   forward (25 launches, PATHS["eval_forward"]); then at levels 2 and 3
    of cells 1 and 4 (a 512x320 pair), 2 (1344x768), 3 (B = 3 at 256x448,
    both directions: batch 6) and level 2 of cell 5 (batch 80): the level's
    five convs through its buffer, each against float64 within DENSE_TOL of
@@ -383,37 +383,47 @@ KERNELS = {
         "vfidkr_torch/csrc/flow_project_scatter_bwd.cu",
         "vfidkr_tpu/ops/pallas/projection_band_kernel.py:227"),
 }
-# launches of each kernel in one run of each path; the others launch none
+# launches of each kernel of kernels.LAUNCHES in one run of each path; the
+# others launch none.  PWC-Net launches K10 once a dense conv, 25 times a
+# forward (both directions in one batch); the float32 rectifier launches K8
+# once a call (one a DAIN forward, one a frame of a slow-motion forward),
+# the bf16 lane none.
 PATHS = {
     "eval_forward": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
-                     "flow_project_finalize": 1},
+                     "flow_project_finalize": 1, "rectify_head": 1,
+                     "dense_conv": 25},
     "train_step": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
                    "filter_interpolate_bwd": 1,
-                   "flow_project_scatter_bwd": 1},
+                   "flow_project_scatter_bwd": 1, "rectify_head": 1,
+                   "dense_conv": 25},
     "slowmo_forward": {"filter_interpolate_fwd": 3,
                        "filter_interpolate_ctx": 3,
                        "flow_project_scatter": 3,
-                       "flow_project_finalize": 3},
+                       "flow_project_finalize": 3, "rectify_head": 3,
+                       "dense_conv": 25},
     # the bf16 lane: K4 launches once per conv of the trunk, six a call
     "eval_forward_bf16": {"filter_interpolate_fwd": 1,
                           "flow_project_scatter": 1,
-                          "flow_project_finalize": 1, "fused_resblocks": 6},
+                          "flow_project_finalize": 1, "fused_resblocks": 6,
+                          "dense_conv": 25},
     "slowmo_forward_bf16": {"filter_interpolate_fwd": 3,
                             "filter_interpolate_ctx": 3,
                             "flow_project_scatter": 3,
                             "flow_project_finalize": 3,
-                            "fused_resblocks": 18},
+                            "fused_resblocks": 18, "dense_conv": 25},
     "middlebury_bf16": {"filter_interpolate_fwd": MB_PAIRS,
                         "flow_project_scatter": MB_PAIRS,
                         "flow_project_finalize": MB_PAIRS,
-                        "fused_resblocks": 6 * MB_PAIRS},
+                        "fused_resblocks": 6 * MB_PAIRS,
+                        "dense_conv": 25 * MB_PAIRS},
     # the context warp forward only: its flow and filter are detached and
     # the context nets frozen
     "slowmo_train_step": {"filter_interpolate_fwd": 1,
                           "filter_interpolate_ctx": 1,
                           "flow_project_scatter": 1,
                           "filter_interpolate_bwd": 1,
-                          "depth_flow_project_bwd": 1},
+                          "depth_flow_project_bwd": 1, "rectify_head": 1,
+                          "dense_conv": 25},
 }
 # the video driver over VIDEO_PAIRS pairs, each a slow-motion forward, in
 # each lane
@@ -437,11 +447,12 @@ PATHS["data_parallel"] = {k: DP_STEPS * n
 # phase 3's
 PATHS["dormant_ops"] = {}
 PATHS["vestigial_eval"] = dict(PATHS["eval_forward"])
-# SepConv's path launches K9 alone (phase 5n counts it)
-PATHS["sepconv_video"] = {}
+# SepConv's path launches K9 alone, once a pair
+PATHS["sepconv_video"] = {"sepconv_pair": SEPCONV_PAIRS}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
-                    "flow_project_scatter": 1, "flow_project_finalize": 1}
+                    "flow_project_scatter": 1, "flow_project_finalize": 1,
+                    "rectify_head": 1, "dense_conv": 25}
 # the case of each kernel that its row of the kernels line reports
 ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "flow_project_scatter": "K2 depth-weighted",
@@ -1123,18 +1134,10 @@ def _compare_grad(name, got, want) -> float:
     return err
 
 
-def _check_head_launches(path, launched, want) -> None:
-    """K8 (``ops.conv_head``, not one of ``kernels.KERNELS``) launched
-    ``want`` times: once a float32 rectifier call."""
-    if launched != want:
-        raise AssertionError(f"rectify_head launched {launched} times in one "
-                             f"{path}, expected {want}")
-
-
 def _check_launches(path, launches, want_counts=None) -> None:
-    """Each kernel launched exactly as often as ``PATHS[path]`` (or
-    ``want_counts``) says."""
-    for name in KERNELS:
+    """Each kernel of ``kernels.LAUNCHES`` launched exactly as often as
+    ``PATHS[path]`` (or ``want_counts``) says."""
+    for name in kernels.LAUNCHES:
         want = (want_counts or PATHS[path]).get(name, 0)
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times in "
@@ -1223,14 +1226,11 @@ def phase_slice(dev: torch.device):
 
     with torch.inference_mode():
         kernels.reset_launches()
-        heads = CH.LAUNCHES
         out = model(i0d, i2d)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-    print(f"[slice] launches in one DAIN eval forward: {launches}, "
-          f"rectify_head {CH.LAUNCHES - heads}")
+    print(f"[slice] launches in one DAIN eval forward: {launches}")
     _check_launches("eval_forward", launches)
-    _check_head_launches("DAIN eval forward", CH.LAUNCHES - heads, 1)
     _check_finite(out)
     rect = out["outputs"][1]
     if tuple(rect.shape) != (1, 3, H, W):
@@ -1292,12 +1292,9 @@ def phase_slowmo(dev: torch.device):
     i0d, i2d = i0.to(dev), i2.to(dev)
     with torch.inference_mode():
         kernels.reset_launches()
-        heads = CH.LAUNCHES
         out = model(i0d, i2d)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        _check_head_launches("slow-motion forward", CH.LAUNCHES - heads,
-                             round(1 / SLOWMO_T) - 1)
         depth_inv = depth_inv_from_log_depth(
             model.depthNet(torch.cat([i0d, i2d], 0)))
     print(f"[slowmo] launches in one DAINSlowMotion({SLOWMO_T}) forward: "
@@ -1502,13 +1499,10 @@ def _train_steps(tag, path, model, opt, batch) -> dict:
         before = {name: [p.detach().clone() for p in grp["params"]]
                   for name, grp in zip(GROUPS, opt.param_groups)}
         kernels.reset_launches()
-        heads = CH.LAUNCHES
         m = train_step(model, opt, batch, config)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         _check_launches(path, launches)
-        # one rectifier call a step: DAIN, and DAINSlowMotion at t = 0.5
-        _check_head_launches(f"{tag} step", CH.LAUNCHES - heads, 1)
         total = float(m["total"])
         if not math.isfinite(total):
             raise AssertionError(f"train step {step}: loss {total}")
@@ -2671,7 +2665,7 @@ def phase_spatial_ops(dev: torch.device) -> dict:
         offs = FP.depth_flow_project(flow, depth_inv, hole_fill=True)
         return offs, FI.filter_interpolate(ctx, offs, filt)
 
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
     shards = [dev] * SPATIAL_SHARDS
     for label, fn, ins in (("K2 K3 K1 C=3", chain, (image, flow, filt)),
                            ("K2 weighted, K3, K7 C=196", depth_chain,
@@ -2892,7 +2886,7 @@ def phase_data_parallel(dev: torch.device) -> dict:
             if not mesh.joined or mesh.world != 1:
                 raise AssertionError(f"mesh {mesh}")
             M.replicate(dp, mesh)
-            launches = dict.fromkeys(KERNELS, 0)
+            launches = dict.fromkeys(kernels.LAUNCHES, 0)
             for step, batch in enumerate(batches):
                 # a copy: loading keeps the tensors it is given, and the
                 # data-parallel step updates its state in place
@@ -3351,8 +3345,6 @@ def phase_sepconv(dev: torch.device, card: str) -> tuple[dict, dict]:
         h, w = SEPCONV_HW
         clip = make_clip(g, SEPCONV_PAIRS + 1, h, w)
         kernels.reset_launches()
-        heads = CH.LAUNCHES
-        SC.LAUNCHES = 0
         times, clamped = [], []
         a_in, pads = interpolate_video.to_input(clip[0], dev)
         for k in range(SEPCONV_PAIRS):
@@ -3373,16 +3365,11 @@ def phase_sepconv(dev: torch.device, card: str) -> tuple[dict, dict]:
         launches = dict(kernels.LAUNCHES)
         print(f"[sepconv] the video driver's path, {SEPCONV_PAIRS} pairs at "
               f"{w}x{h} run at {SEPCONV_PADDED[1]}x{SEPCONV_PADDED[0]}: "
-              f"sepconv_pair {SC.LAUNCHES} launches, rectify_head "
-              f"{CH.LAUNCHES - heads}, the port's others {launches}; frames "
+              f"launches {launches}; frames "
               f"(1, {h}, {w}, 3) uint8, {max(clamped):.2e} of the values at "
               f"0 or 255 at most; host s a pair (first one tunes cuDNN): "
               f"{[round(x, 4) for x in times]} on {card}")
-        if SC.LAUNCHES != SEPCONV_PAIRS:
-            raise AssertionError(f"sepconv_pair launched {SC.LAUNCHES} times "
-                                 f"in {SEPCONV_PAIRS} pairs")
         _check_launches("sepconv_video", launches)
-        _check_head_launches("SepConv video", CH.LAUNCHES - heads, 0)
         del model, a_in, b_in
     finally:
         torch.backends.cudnn.benchmark = saved
@@ -3416,8 +3403,6 @@ def phase_sepconv(dev: torch.device, card: str) -> tuple[dict, dict]:
                 "call_ms": call, "plain_ms": plain, "bound_ms": bound,
                 "bound_by": "operations"})
         del args
-    row["launches"] = SEPCONV_PAIRS
-    row["launches_per_path"] = {"sepconv_video": SEPCONV_PAIRS}
     torch.cuda.synchronize()
     return launches, row
 
@@ -3499,15 +3484,11 @@ def phase_dense_conv(dev: torch.device, card: str) -> dict:
     g = torch.Generator().manual_seed(20)
     i0, i2 = make_frames(g)
     kernels.reset_launches()
-    before = DC.LAUNCHES
     with torch.inference_mode():
         model(i0.to(dev), i2.to(dev))
     torch.cuda.synchronize()
-    print(f"[dense] a DAIN forward at {W}x{H}: dense_conv {DC.LAUNCHES - before}"
-          f" launches, the port's others {dict(kernels.LAUNCHES)}")
-    if DC.LAUNCHES - before != 25:
-        raise AssertionError(f"dense_conv launched {DC.LAUNCHES - before} "
-                             f"times in a DAIN forward")
+    print(f"[dense] a DAIN forward at {W}x{H}: launches "
+          f"{dict(kernels.LAUNCHES)}")
     _check_launches("eval_forward", dict(kernels.LAUNCHES))
     del model
 
@@ -3553,8 +3534,6 @@ def phase_dense_conv(dev: torch.device, card: str) -> dict:
             row["other_cases"].append(case)
         del x, ws, bs
     print(f"[dense] levels where K10 is not the fastest: {slower or 'none'}")
-    row["launches"] = 25
-    row["launches_per_path"] = {"eval_forward": 25}
     torch.cuda.synchronize()
     return row
 
@@ -3639,8 +3618,11 @@ def main() -> None:
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
-    rows.append(k9_row)
-    rows.append(k10_row)
+    for row in (k9_row, k10_row):
+        name = row["name"]
+        row["launches"] = sum(n[name] for n in per_path.values())
+        row["launches_per_path"] = {p: n[name] for p, n in per_path.items()}
+        rows.append(row)
     print(f"[time] chip_smoke.py took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from vfidkr_torch import kernels
 from vfidkr_torch.models import resblock
 from vfidkr_torch.models.resblock import MultipleBasicBlock
 from vfidkr_torch.ops import conv_head as CH
@@ -37,13 +38,13 @@ def test_plain_head_is_block1(n, c, h, w):
     and launches nothing."""
     m = _block(c)
     x = _x(c, h, w, n)
-    before = CH.LAUNCHES
+    before = kernels.LAUNCHES["rectify_head"]
     got = CH.rectify_head(x, m.block1[0].weight, m.block1[0].bias)
     assert torch.equal(got, m.block1(x))
     assert torch.equal(got, F.relu(F.conv2d(
         x, m.block1[0].weight, m.block1[0].bias, padding=3)))
     assert bool((got == 0).any()) and bool((got > 0).any())
-    assert CH.LAUNCHES == before
+    assert kernels.LAUNCHES["rectify_head"] == before
 
 
 def test_plain_head_gradients_are_block1s():

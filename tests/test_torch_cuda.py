@@ -36,6 +36,14 @@ def dev():
     return torch.device("cuda")
 
 
+def _launched(before):
+    """{kernel: launches since ``before``, a copy of ``kernels.LAUNCHES``}
+    of the kernels that launched."""
+    from vfidkr_torch import kernels
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+
+
 def _flow(g, n, h, w, scale):
     flow = (torch.rand(n, 2, h, w, generator=g) * 2 - 1) * scale
     flow[0, :, 1, w - 4] = torch.tensor([3.0, 0.0])          # x2 == W-1
@@ -61,8 +69,7 @@ def test_filter_interpolate_kernel(dev, c):
     before = dict(kernels.LAUNCHES)
     got = FI.filter_interpolate(image, flow, filt)
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in kernels.LAUNCHES.items()
-            if v != before[k]} == {name: 1}
+    assert _launched(before) == {name: 1}
     want = FI.filter_interpolate_plain(image, flow, filt)
     assert (got - want).abs().max().item() <= ATOL
     assert torch.equal(got[0, :, 2, 0], image[0, :, 2, 0])   # |fx| == W/2
@@ -283,11 +290,35 @@ def test_dain_cuda_matches_cpu(dev):
                                     "flow_project_scatter_bwd": 0,
                                     "filter_interpolate_ctx": 0,
                                     "fused_resblocks": 0,
-                                    "depth_flow_project_bwd": 0}
+                                    "depth_flow_project_bwd": 0,
+                                    "rectify_head": 1, "sepconv_pair": 0,
+                                    "dense_conv": 25}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=atol)
+
+
+def test_record_launches_keeps_kernels_only(dev):
+    """One float32 DAIN eval forward inside ``record_launches``: the records
+    hold the launches of ``kernels.KERNELS`` alone (K1-K3 once each), while
+    ``kernels.LAUNCHES`` counts K8 once and K10 25 times besides."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import DAIN
+    g = torch.Generator().manual_seed(3)
+    model = DAIN(generator=g, init_unused=False).eval().to(dev)
+    i0, i2 = torch.rand(2, 1, 3, 64, 128, generator=g).to(dev)
+    kernels.reset_launches()
+    with torch.inference_mode(), kernels.record_launches() as records:
+        model(i0, i2)
+    torch.cuda.synchronize()
+    names = sorted(name for name, _ in records)
+    assert names == ["filter_interpolate_fwd", "flow_project_finalize",
+                     "flow_project_scatter"]
+    assert {n: names.count(n) for n in kernels.KERNELS} == {
+        n: kernels.LAUNCHES[n] for n in kernels.KERNELS}
+    assert {n: kernels.LAUNCHES[n] for n in kernels.UNRECORDED} == {
+        "rectify_head": 1, "sepconv_pair": 0, "dense_conv": 25}
 
 
 def _grads_close(name, got, want):
@@ -424,7 +455,9 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "flow_project_scatter_bwd": 1,
                                 "filter_interpolate_ctx": 0,
                                 "fused_resblocks": 0,
-                                "depth_flow_project_bwd": 0}
+                                "depth_flow_project_bwd": 0,
+                                "rectify_head": 1, "sepconv_pair": 0,
+                                "dense_conv": 25}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -464,7 +497,9 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "flow_project_scatter_bwd": 0,
                                     "filter_interpolate_ctx": 3,
                                     "fused_resblocks": 0,
-                                    "depth_flow_project_bwd": 0}
+                                    "depth_flow_project_bwd": 0,
+                                    "rectify_head": 3, "sepconv_pair": 0,
+                                    "dense_conv": 25}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
@@ -583,7 +618,9 @@ def test_dain_slowmotion_train_step_cuda_matches_cpu(dev):
                                 "flow_project_scatter_bwd": 0,
                                 "filter_interpolate_ctx": 1,
                                 "fused_resblocks": 0,
-                                "depth_flow_project_bwd": 1}
+                                "depth_flow_project_bwd": 1,
+                                "rectify_head": 1, "sepconv_pair": 0,
+                                "dense_conv": 25}
     for k, v in gpu.state_dict().items():
         if k in frozen:
             assert torch.equal(v, frozen[k]), k
@@ -704,7 +741,9 @@ def test_dain_bf16_launches_fused_resblocks(dev):
                                 "flow_project_scatter_bwd": 0,
                                 "filter_interpolate_ctx": 0,
                                 "fused_resblocks": 6,
-                                "depth_flow_project_bwd": 0}
+                                "depth_flow_project_bwd": 0,
+                                "rectify_head": 0, "sepconv_pair": 0,
+                                "dense_conv": 25}
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()
@@ -737,12 +776,12 @@ def test_rectify_head_kernel(dev, n, c, h, w):
     from vfidkr_torch import kernels
     from vfidkr_torch.ops import conv_head as CH
     x, wt, b = (t.to(dev) for t in _head_inputs(n, c, h, w))
-    before, others = CH.LAUNCHES, dict(kernels.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     with torch.inference_mode():
         got = CH.rectify_head(x, wt, b)
         again = CH.rectify_head(x, wt, b)
     torch.cuda.synchronize()
-    assert CH.LAUNCHES == before + 2 and kernels.LAUNCHES == others
+    assert _launched(before) == {"rectify_head": 2}
     assert got.shape == (n, 128, h, w) and got.is_contiguous()
     assert torch.equal(got, again)
     xd, wd, bd = x.double(), wt.double(), b.double()
@@ -755,11 +794,10 @@ def test_rectify_head_kernel(dev, n, c, h, w):
 
 def test_rectifier_launches_rectify_head_once(dev):
     """One float32 rectifier call launches K8 once, with no grad and under
-    autograd, and nothing of ``kernels.KERNELS``; its output is the CPU
-    run's within 1e-5 x max(1, max |CPU|)."""
+    autograd, and no other kernel; its output is the CPU run's within 1e-5
+    x max(1, max |CPU|)."""
     from vfidkr_torch import kernels
     from vfidkr_torch.models.resblock import MultipleBasicBlock
-    from vfidkr_torch.ops import conv_head as CH
     cpu = MultipleBasicBlock(45, 128,
                              generator=torch.Generator().manual_seed(13))
     x = torch.rand(2, 45, 64, 128, generator=torch.Generator().manual_seed(14))
@@ -767,16 +805,15 @@ def test_rectifier_launches_rectify_head_once(dev):
         want = cpu(x)
     m = MultipleBasicBlock(45, 128).to(dev)
     m.load_state_dict(cpu.state_dict())
-    others = dict(kernels.LAUNCHES)
-    before = CH.LAUNCHES
+    before = dict(kernels.LAUNCHES)
     with torch.inference_mode():
         got = m(x.to(dev))
     torch.cuda.synchronize()
-    assert CH.LAUNCHES == before + 1
+    assert _launched(before) == {"rectify_head": 1}
     out = m(x.to(dev).requires_grad_())
     out.sum().backward()
     torch.cuda.synchronize()
-    assert CH.LAUNCHES == before + 2 and kernels.LAUNCHES == others
+    assert _launched(before) == {"rectify_head": 2}
     assert m.block1[0].weight.grad is not None
     err = (got.cpu() - want).abs().max().item()
     assert err <= ATOL * max(1.0, want.abs().max().item()), err
@@ -791,15 +828,16 @@ def test_rectify_head_gradients_match_cudnn(dev):
     both take the same ReLU mask, checked first.)  A frozen input gets no
     gradient."""
     import torch.nn.functional as F
+    from vfidkr_torch import kernels
     from vfidkr_torch.ops import conv_head as CH
     x, wt, b = (t.to(dev) for t in _head_inputs(2, 45, 64, 96, seed=15))
     cot = torch.randn(2, 128, 64, 96,
                       generator=torch.Generator().manual_seed(16)).to(dev)
     leaves = [t.clone().requires_grad_() for t in (x, wt, b)]
     ref = [t.clone().requires_grad_() for t in (x, wt, b)]
-    before = CH.LAUNCHES
+    before = dict(kernels.LAUNCHES)
     out = CH.rectify_head(*leaves)
-    assert CH.LAUNCHES == before + 1
+    assert _launched(before) == {"rectify_head": 1}
     assert type(out.grad_fn).__name__ == "_RectifyHeadBackward"
     want = F.relu(F.conv2d(ref[0], ref[1], ref[2], padding=3))
     assert torch.equal(out > 0, want > 0)
@@ -886,19 +924,18 @@ def _dense_errors(buf, ws, bs):
 def test_dense_conv_kernel(dev, cell, n, lvl, h, w):
     """K10 at each level of cells 1, 4 and 2: the five convs through the
     level's buffer, each held to float64 on the input it read, one launch a
-    conv and nothing of ``kernels.KERNELS``; the level run twice gives the
-    same bits (split tiles at cells 1 and 4's levels 3 to 6, unsplit at
-    cell 2's level 2)."""
+    conv and no other kernel; the level run twice gives the same bits
+    (split tiles at cells 1 and 4's levels 3 to 6, unsplit at cell 2's
+    level 2)."""
     from vfidkr_torch import kernels
-    from vfidkr_torch.ops import dense_conv as DC
     x, ws, bs = _dense_inputs(n, h, w, _DENSE_OD[lvl], seed=30 + lvl)
     x, ws, bs = x.to(dev), [t.to(dev) for t in ws], [t.to(dev) for t in bs]
-    before, others = DC.LAUNCHES, dict(kernels.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     with torch.inference_mode():
         buf = _dense_level(x, ws, bs)
         again = _dense_level(x, ws, bs)
     torch.cuda.synchronize()
-    assert DC.LAUNCHES == before + 10 and kernels.LAUNCHES == others
+    assert _launched(before) == {"dense_conv": 10}
     assert torch.equal(buf, again)
     assert torch.equal(buf[:, 448:], x)
     errs = _dense_errors(buf, ws, bs)
@@ -938,7 +975,6 @@ def test_dain_launches_dense_conv_25_times(dev):
     import copy
     from vfidkr_torch import kernels
     from vfidkr_torch.models import DAIN
-    from vfidkr_torch.ops import dense_conv as DC
     g = torch.Generator().manual_seed(2)
     model = DAIN(generator=g).eval()
     with torch.no_grad():
@@ -950,19 +986,18 @@ def test_dain_launches_dense_conv_25_times(dev):
     cpu = copy.deepcopy(model)
     gpu = model.to(dev)
     kernels.reset_launches()
-    before = DC.LAUNCHES
     with torch.inference_mode():
         got = gpu.flownets(i0.to(dev), i2.to(dev))
         torch.cuda.synchronize()
-        assert DC.LAUNCHES == before + 25
+        assert kernels.LAUNCHES["dense_conv"] == 25
         gpu(i0.to(dev), i2.to(dev))
         torch.cuda.synchronize()
-        assert DC.LAUNCHES == before + 50
+        assert kernels.LAUNCHES["dense_conv"] == 50
         want = cpu.flownets(i0, i2)
     traced = gpu.flownets(i0.to(dev), i2.to(dev))
     traced.sum().backward()
     torch.cuda.synchronize()
-    assert DC.LAUNCHES == before + 75
+    assert kernels.LAUNCHES["dense_conv"] == 75
     assert gpu.flownets.conv2_4[0].weight.grad is not None
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-4)
 
@@ -974,15 +1009,16 @@ def test_dense_conv_gradients_match_cudnn(dev):
     ``leaky_relu_backward`` and ``convolution_backward`` on the saved
     tensors.  A frozen input gets no gradient."""
     import torch.nn.functional as F
+    from vfidkr_torch import kernels
     from vfidkr_torch.ops import dense_conv as DC
     x, ws, bs = _dense_inputs(2, 40, 64, _DENSE_OD[3], seed=17)
     cot = torch.randn(2, 128, 40, 64,
                       generator=torch.Generator().manual_seed(18)).to(dev)
     leaves = [t.to(dev).requires_grad_() for t in (x, ws[0], bs[0])]
     ref = [t.detach().clone().requires_grad_() for t in leaves]
-    before = DC.LAUNCHES
+    before = dict(kernels.LAUNCHES)
     out = DC.dense_conv(*leaves)
-    assert DC.LAUNCHES == before + 1
+    assert _launched(before) == {"dense_conv": 1}
     assert type(out.grad_fn).__name__ == "_LeakyReluOfOutputBackward"
     assert type(out.grad_fn.next_functions[0][0]).__name__ == \
         "_DenseConvBackward"
@@ -1007,6 +1043,7 @@ def test_dense_conv_train_step_matches_cudnn_path(dev, monkeypatch):
     and the median leaf's."""
     import copy
     import statistics
+    from vfidkr_torch import kernels
     from vfidkr_torch.models import DAIN, pwcnet
     from vfidkr_torch.ops import dense_conv as DC
     from vfidkr_torch.training import TrainConfig, make_optimizer, train_step
@@ -1024,12 +1061,12 @@ def test_dense_conv_train_step_matches_cudnn_path(dev, monkeypatch):
     k10 = model.to(dev)
     cudnn = copy.deepcopy(k10)
     config = TrainConfig()
-    before = DC.LAUNCHES
+    before = kernels.LAUNCHES["dense_conv"]
     got = train_step(k10, make_optimizer(k10, config), batch, config)
-    assert DC.LAUNCHES == before + 25
+    assert kernels.LAUNCHES["dense_conv"] == before + 25
     monkeypatch.setattr(pwcnet, "dense_conv", DC.dense_conv_plain)
     want = train_step(cudnn, make_optimizer(cudnn, config), batch, config)
-    assert DC.LAUNCHES == before + 25
+    assert kernels.LAUNCHES["dense_conv"] == before + 25
     torch.cuda.synchronize()
     loss, ref = got["total"].item(), want["total"].item()
     assert abs(loss - ref) <= 3e-6 * abs(ref), (loss, ref)

@@ -12,6 +12,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from vfidkr_torch import kernels
 from vfidkr_torch.models import pwcnet
 from vfidkr_torch.models.pwcnet import PWCDCNet
 from vfidkr_torch.ops import dense_conv as DC
@@ -48,7 +49,7 @@ def test_plain_dense_conv_is_the_module(net, lvl, od):
     """Each wrapper on CPU tensors gives its ``conv{lvl}_{i}`` module's bits
     and launches nothing: ``dense_conv`` a fresh tensor, ``dense_conv_into``
     the slot before its input in a buffer."""
-    before = DC.LAUNCHES
+    before = kernels.LAUNCHES["dense_conv"]
     x = _x(od, seed=lvl)
     for i in range(5):
         seq = getattr(net, f"conv{lvl}_{i}")
@@ -66,7 +67,7 @@ def test_plain_dense_conv_is_the_module(net, lvl, od):
         assert bool((buf[:, :3] == 7.0).all())
         assert bool((want < 0).any()) and bool((want > 0).any())
         x = torch.cat([want, x], 1)
-    assert DC.LAUNCHES == before
+    assert kernels.LAUNCHES["dense_conv"] == before
 
 
 @pytest.mark.parametrize("lvl,od", LEVELS)
@@ -109,7 +110,7 @@ def test_forward_unchanged_and_nothing_launched(net):
     K10."""
     g = torch.Generator().manual_seed(3)
     im1, im2 = torch.rand(2, 1, 3, 64, 128, generator=g)
-    before = DC.LAUNCHES
+    before = kernels.LAUNCHES["dense_conv"]
     with torch.no_grad():
         got = net(im1, im2)
     traced = net(im1, im2)
@@ -122,7 +123,7 @@ def test_forward_unchanged_and_nothing_launched(net):
         del net._dense
     assert net._dense.__func__ is real.__func__
     assert torch.equal(got, want) and torch.equal(traced.detach(), want)
-    assert DC.LAUNCHES == before
+    assert kernels.LAUNCHES["dense_conv"] == before
 
 
 def _bad(case):

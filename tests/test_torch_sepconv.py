@@ -27,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmark.lib.cell import load_json  # noqa: E402
 from benchmark.lib.weights import make_state, shapes_of  # noqa: E402
 from benchmark.reference import sepconv as ref  # noqa: E402
+from vfidkr_torch import kernels  # noqa: E402
 from vfidkr_torch.config import ModelConfig  # noqa: E402
 from vfidkr_torch.models import SepConv  # noqa: E402
 # the module (``vfidkr_torch.ops`` exports its function of the same name)
@@ -105,7 +106,7 @@ def test_pair_plain_is_two_padded_separable_convs():
             + SC.separable_conv(pad(i2), v2, h2))
     torch.testing.assert_close(
         SC.separable_conv_pair(i0, v1, h1, i2, v2, h2), want, rtol=0, atol=0)
-    assert SC.LAUNCHES == 0           # the CPU runs the plain version
+    assert kernels.LAUNCHES["sepconv_pair"] == 0   # the CPU runs the plain one
     with pytest.raises(ValueError, match="odd"):
         SC.separable_conv_pair(i0, v1[:, :4], h1[:, :4], i2, v2[:, :4],
                                h2[:, :4])
@@ -205,11 +206,11 @@ def test_k9_against_the_plain_version(dev, n, h, w):
     i0, i2 = torch.rand(2, n, 3, h, w, generator=g, device=dev)
     v1, h1, v2, h2 = (torch.rand(4, n, 51, h, w, generator=g, device=dev)
                       - 0.2) * 0.04
-    before = SC.LAUNCHES
+    before = kernels.LAUNCHES["sepconv_pair"]
     with torch.inference_mode():
         got = SC.separable_conv_pair(i0, v1, h1, i2, v2, h2)
     torch.cuda.synchronize()
-    assert SC.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["sepconv_pair"] == before + 1
     d = lambda *t: [x.double() for x in t]
     want = SC.separable_conv_pair_plain(*d(i0, v1, h1, i2, v2, h2))
     mag = SC.separable_conv_pair_plain(*d(i0, v1.abs(), h1.abs(), i2,

@@ -25,10 +25,10 @@ set, else the CPUs this process may run on (``os.sched_getaffinity``: in a
 container the host's count oversubscribes), at most ``MAX_THREADS``.  With
 an H100 on an 8-CPU host the trainer's ms/step from disk is the same at 1,
 2, 4 and 8 threads, while the augment alone is fastest at 4 for a batch of
-12 (``tools/ab_train_from_disk.py``, ``PERF.md``): more threads only
-contend with the decode workers and the launching thread.  libgomp is not
-fork-safe: the library is called only from the process that loaded it (the
-trainer's decode workers, forked children, only decode).
+12 (``PERF.md``): more threads only contend with the decode workers and
+the launching thread.  libgomp is not fork-safe: the library is called only
+from the process that loaded it (the trainer's decode workers, forked
+children, only decode).
 """
 
 from __future__ import annotations

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry point -> argtypes: device pointers, int sizes, then the stream.
+# C entry point -> argtypes: device pointers, int sizes, then the stream
+# (``kernels.launch`` appends the stream to a wrapper's arguments).
 SIGNATURES = {
     # image, flow, filt, out, n, c, h, w, row0, hg, stream; row0 and hg place
     # the block's rows in a row-sharded frame: the global row of local row 0
@@ -59,13 +60,13 @@ SIGNATURES = {
     "vfidkr_flow_project_finalize": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, w (one conv's packed taps), res (or NULL), out (NHWC), n, h, w, stream
     "vfidkr_fused_resblocks": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, w, b, out, n, c, h, w, stream (launched by ops/conv_head.py)
+    # x, w, b, out, n, c, h, w, stream (K8, ops/conv_head.py)
     "vfidkr_rectify_head": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # i0, v1, h1, i2, v2, h2, out, n, h, w, stream (launched by
+    # i0, v1, h1, i2, v2, h2, out, n, h, w, stream (K9,
     # ops/separable_conv.py)
     "vfidkr_sepconv_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, x's batch stride, w, b, out, out's batch stride, n, cin, cout, h, w,
-    # tile rows, split, stream (launched by ops/dense_conv.py)
+    # tile rows, split, stream (K10, ops/dense_conv.py)
     "vfidkr_dense_conv": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
                           _I, _P],
 }

@@ -14,28 +14,18 @@ Under autograd the kernel runs inside ``_RectifyHead``, whose backward is the
 one autograd runs for the plain version: the gradient masked where the output
 is not positive (``threshold_backward``), then ``convolution_backward`` on
 the saved input and weight.
-
-``LAUNCHES`` counts K8's launches (a plain integer, raised under a lock: the
-shards of a row-sharded forward launch from threads of their own).  K8 is
-launched here and not through ``vfidkr_torch.kernels.launch``: it is not one
-of ``kernels.KERNELS``.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 import torch.nn.functional as F
 
-from vfidkr_torch.kernels import build
+from vfidkr_torch import kernels
 
 CO = 128         # output channels
 KSIZE = 7
 PAD = 3
-
-LAUNCHES = 0
-_LOCK = threading.Lock()
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
@@ -66,17 +56,9 @@ def rectify_head_plain(x: torch.Tensor, w: torch.Tensor,
 
 def _launch(x: torch.Tensor, w: torch.Tensor,
             b: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     n, c, h, wd = x.shape
     out = torch.empty((n, CO, h, wd), dtype=x.dtype, device=x.device)
-    fn = build.load_library().vfidkr_rectify_head
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 n, c, h, wd, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rectify_head: CUDA launch failed with error {err}")
-    with _LOCK:
-        LAUNCHES += 1
+    kernels.launch("rectify_head", x, w, b, out, n, c, h, wd)
     return out
 
 

@@ -30,21 +30,16 @@ positive (``leaky_relu_backward`` on the saved output), then
 ``plan`` picks K10's tile (8 or 16 rows x 32 columns x 32 channels) and the
 number of blocks that split a tile's input channels from the shape alone
 (N, H, W, Cin, Cout) and the card's SM count.
-``LAUNCHES`` counts K10's launches (a plain integer, raised under a lock:
-the shards of a row-sharded forward launch from threads of their own).  K10
-is launched here and not through ``vfidkr_torch.kernels.launch``: it is not
-one of ``kernels.KERNELS``.
 """
 
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 import torch.nn.functional as F
 
-from vfidkr_torch.kernels import build
+from vfidkr_torch import kernels
 
 SLOPE = 0.1
 KSIZE = 3
@@ -56,8 +51,6 @@ LARGE_FROM = 4    # large-tile blocks an SM from which the large tile runs
 STAGE_C = 8       # input channels a stage of its ring
 MAX_SPLIT = 16    # the largest cluster (Hopper's, not portable)
 
-LAUNCHES = 0
-_LOCK = threading.Lock()
 _SMS: dict = {}   # device index -> SM count
 _PLANS: dict = {}  # (n, h, w, cin, cout, sms) -> (rows, split)
 
@@ -138,23 +131,11 @@ def _launch(x_ptr: int, xs: int, out_ptr: int, os: int, shape: tuple,
     Cin, H, W) and (N, Cout, H, W) float32 on ``w``'s device, each with
     contiguous channel planes and the batch stride ``xs`` or ``os``,
     disjoint; ``shape`` is (N, Cin, H, W)."""
-    global LAUNCHES
     n, cin, h, wd = shape
     cout = w.shape[0]
-    dev = w.device
-    rows, split = plan(n, h, wd, cin, cout, _sms(dev))
-    fn = build.load_library().vfidkr_dense_conv
-    args = (x_ptr, xs, w.data_ptr(), b.data_ptr(), out_ptr, os, n, cin, cout,
-            h, wd, rows, split, torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"dense_conv: CUDA launch failed with error {err}")
-    with _LOCK:
-        LAUNCHES += 1
+    rows, split = plan(n, h, wd, cin, cout, _sms(w.device))
+    kernels.launch("dense_conv", x_ptr, xs, w, b, out_ptr, os, n, cin, cout,
+                   h, wd, rows, split)
 
 
 def _fresh(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -24,26 +24,18 @@ computes them with static slices, not a Pallas kernel.
   launch, the frames read in place with clamped coordinates, true float32
   on the CUDA cores; three channels and 51 taps, SepConv's); on CPU tensors
   it runs ``separable_conv_pair_plain``.  K9 has no backward: on a CUDA
-  input that needs a gradient it raises.  ``LAUNCHES`` counts K9's
-  launches (raised under a lock: the video driver's row shards launch from
-  threads); K9 is launched here and not through
-  ``vfidkr_torch.kernels.launch``: it is not one of ``kernels.KERNELS``.
+  input that needs a gradient it raises.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 import torch.nn.functional as F
 
-from vfidkr_torch.kernels import build
+from vfidkr_torch import kernels
 
 SENTINEL = -2000.0
 K9_CHANNELS, K9_TAPS = 3, 51
-
-LAUNCHES = 0
-_LOCK = threading.Lock()
 
 
 def _check_filters(vert, horiz):
@@ -116,7 +108,6 @@ def separable_conv_pair_plain(i0, v1, h1, i2, v2, h2) -> torch.Tensor:
 
 
 def _launch(i0, v1, h1, i2, v2, h2) -> torch.Tensor:
-    global LAUNCHES
     n, c, h, w = i0.shape
     fs = v1.shape[1]
     if c != K9_CHANNELS or fs != K9_TAPS:
@@ -126,15 +117,7 @@ def _launch(i0, v1, h1, i2, v2, h2) -> torch.Tensor:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sepconv_pair: contiguous tensors only")
     out = torch.empty_like(i0)
-    fn = build.load_library().vfidkr_sepconv_pair
-    with torch.cuda.device(i0.device):
-        err = fn(*(t.data_ptr() for t in tensors), out.data_ptr(), n, h, w,
-                 torch.cuda.current_stream(i0.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sepconv_pair: CUDA launch failed with error "
-                           f"{err}")
-    with _LOCK:
-        LAUNCHES += 1
+    kernels.launch("sepconv_pair", *tensors, out, n, h, w)
     return out
 
 
