@@ -159,6 +159,15 @@ session comes last (7), since host-bound timings read slower after one:
    leaky_relu(conv2d) and torch.cat, as the port ran before, cudnn.benchmark
    off) and the same with cudnn.benchmark on (library_ms, never called by
    the port); a level where K10 is not the fastest is printed as such;
+5p. flow_head: K11, PWC-Net's flow heads, once a level in a DAIN forward (5
+   launches, PATHS["eval_forward"]); then at every level of cells 1 and 4
+   (a 512x320 pair) and 2 (1344x768), batch 2: against the plain conv on
+   the card within ATOL x max(1, |plain|), twice bit for bit, and timed by
+   CUDA events (median of 20 runs of 10 launches with the wrapper: the
+   small levels' times are the host's) beside its bytes bound (the buffer
+   read once, 3.35 TB/s), the plain version (cuDNN's conv2d,
+   cudnn.benchmark off, as the port ran before) and the same with
+   cudnn.benchmark on (library_ms, never called by the port);
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -247,6 +256,7 @@ from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
 from vfidkr_torch.ops import conv_head as CH
 from vfidkr_torch.ops import dense_conv as DC
 from vfidkr_torch.ops import filter_interpolation as FI
+from vfidkr_torch.ops import flow_head as FH
 from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.ops import rectify as RB
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
@@ -355,6 +365,12 @@ DENSE_SHAPES = (("cells 1, 4", 2, 2, (80, 128)), ("cells 1, 4", 2, 3, (40, 64)),
                 ("cell 3", 6, 2, (64, 112)), ("cell 3", 6, 3, (32, 56)),
                 ("cell 5", 80, 2, (64, 112)))
 DENSE_TOL = 2e-6
+# the flow_head phase: (cell, batch, level, map, the head's input channels)
+HEAD_C = {6: 529, 5: 661, 4: 629, 3: 597, 2: 565}
+HEAD_SHAPES = tuple((cell, 2, lvl, (hh >> lvl, ww >> lvl), HEAD_C[lvl])
+                    for cell, hh, ww in (("cells 1, 4", 320, 512),
+                                         ("cell 2", 768, 1344))
+                    for lvl in (2, 3, 4, 5, 6))
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -385,37 +401,40 @@ KERNELS = {
 }
 # launches of each kernel of kernels.LAUNCHES in one run of each path; the
 # others launch none.  PWC-Net launches K10 once a dense conv, 25 times a
-# forward (both directions in one batch); the float32 rectifier launches K8
+# forward (both directions in one batch), and K11 once a flow head, 5 times;
+# the float32 rectifier launches K8
 # once a call (one a DAIN forward, one a frame of a slow-motion forward),
 # the bf16 lane none.
 PATHS = {
     "eval_forward": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
                      "flow_project_finalize": 1, "rectify_head": 1,
-                     "dense_conv": 25},
+                     "dense_conv": 25, "flow_head": 5},
     "train_step": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
                    "filter_interpolate_bwd": 1,
                    "flow_project_scatter_bwd": 1, "rectify_head": 1,
-                   "dense_conv": 25},
+                   "dense_conv": 25, "flow_head": 5},
     "slowmo_forward": {"filter_interpolate_fwd": 3,
                        "filter_interpolate_ctx": 3,
                        "flow_project_scatter": 3,
                        "flow_project_finalize": 3, "rectify_head": 3,
-                       "dense_conv": 25},
+                       "dense_conv": 25, "flow_head": 5},
     # the bf16 lane: K4 launches once per conv of the trunk, six a call
     "eval_forward_bf16": {"filter_interpolate_fwd": 1,
                           "flow_project_scatter": 1,
                           "flow_project_finalize": 1, "fused_resblocks": 6,
-                          "dense_conv": 25},
+                          "dense_conv": 25, "flow_head": 5},
     "slowmo_forward_bf16": {"filter_interpolate_fwd": 3,
                             "filter_interpolate_ctx": 3,
                             "flow_project_scatter": 3,
                             "flow_project_finalize": 3,
-                            "fused_resblocks": 18, "dense_conv": 25},
+                            "fused_resblocks": 18, "dense_conv": 25,
+                            "flow_head": 5},
     "middlebury_bf16": {"filter_interpolate_fwd": MB_PAIRS,
                         "flow_project_scatter": MB_PAIRS,
                         "flow_project_finalize": MB_PAIRS,
                         "fused_resblocks": 6 * MB_PAIRS,
-                        "dense_conv": 25 * MB_PAIRS},
+                        "dense_conv": 25 * MB_PAIRS,
+                        "flow_head": 5 * MB_PAIRS},
     # the context warp forward only: its flow and filter are detached and
     # the context nets frozen
     "slowmo_train_step": {"filter_interpolate_fwd": 1,
@@ -423,7 +442,7 @@ PATHS = {
                           "flow_project_scatter": 1,
                           "filter_interpolate_bwd": 1,
                           "depth_flow_project_bwd": 1, "rectify_head": 1,
-                          "dense_conv": 25},
+                          "dense_conv": 25, "flow_head": 5},
 }
 # the video driver over VIDEO_PAIRS pairs, each a slow-motion forward, in
 # each lane
@@ -452,7 +471,7 @@ PATHS["sepconv_video"] = {"sepconv_pair": SEPCONV_PAIRS}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1,
-                    "rectify_head": 1, "dense_conv": 25}
+                    "rectify_head": 1, "dense_conv": 25, "flow_head": 5}
 # the case of each kernel that its row of the kernels line reports
 ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "flow_project_scatter": "K2 depth-weighted",
@@ -3442,13 +3461,13 @@ def dense_level(x, ws, bs, conv=None):
     return buf
 
 
-def cudnn_dense_benchmarked(x, wt, b):
-    """K10's yardstick: cuDNN's float32 leaky_relu(conv2d) with
-    cudnn.benchmark on (its choice among algorithms, made on the first call
-    of a shape)."""
+def cudnn_benchmarked(plain, *args):
+    """K10's and K11's yardstick: their plain version (cuDNN in float32)
+    with cudnn.benchmark on (its choice among algorithms, made on the first
+    call of a shape)."""
     torch.backends.cudnn.benchmark = True
     try:
-        return DC.dense_conv_plain(x, wt, b)
+        return plain(*args)
     finally:
         torch.backends.cudnn.benchmark = False
 
@@ -3507,7 +3526,8 @@ def phase_dense_conv(dev: torch.device, card: str) -> dict:
                 lambda: dense_level(x, ws, bs, DC.dense_conv_plain),
                 warmup=3, iters=20, inner=5))
             tuned = statistics.median(cuda_times_ms(
-                lambda: dense_level(x, ws, bs, cudnn_dense_benchmarked),
+                lambda: dense_level(x, ws, bs, lambda *a: cudnn_benchmarked(
+                    DC.dense_conv_plain, *a)),
                 warmup=3, iters=20, inner=5))
         work = [conv_work(n, wt.shape[1], wt.shape[0], h, w) for wt in ws]
         bound = sum(max(nb / HBM_BYTES_S, ops / F32_FLOP_S)
@@ -3534,6 +3554,90 @@ def phase_dense_conv(dev: torch.device, card: str) -> dict:
             row["other_cases"].append(case)
         del x, ws, bs
     print(f"[dense] levels where K10 is not the fastest: {slower or 'none'}")
+    torch.cuda.synchronize()
+    return row
+
+
+def _flow_head_inputs(n, c, h, w, seed):
+    """A level's buffer in [-1, 1), the head's weights at the init's scale
+    (normal, std sqrt(2 / (9 C))) and the biases the benchmark draws, on the
+    card."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, c, h, w, generator=g) * 2 - 1
+    wt = torch.randn(2, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5
+    b = torch.randn(2, generator=g) * 0.01 + torch.tensor([0.53, -0.31])
+    dev = torch.device("cuda")
+    return x.to(dev), wt.to(dev), b.to(dev)
+
+
+def phase_flow_head(dev: torch.device, card: str) -> dict:
+    """K11's launches in a DAIN forward, then K11 at each level of cells 1
+    and 2 against the plain conv, timed beside its bound, the plain version
+    and cuDNN autotuned.  Returns K11's row of the kernels line."""
+    model = make_model().to(dev).eval()
+    g = torch.Generator().manual_seed(21)
+    i0, i2 = make_frames(g)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        model(i0.to(dev), i2.to(dev))
+    torch.cuda.synchronize()
+    print(f"[heads] a DAIN forward at {W}x{H}: launches "
+          f"{dict(kernels.LAUNCHES)}")
+    _check_launches("eval_forward", dict(kernels.LAUNCHES))
+    del model
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row, total = None, {}
+    for cell, n, lvl, (h, w), c in HEAD_SHAPES:
+        x, wt, b = _flow_head_inputs(n, c, h, w, seed=lvl)
+        label = f"{cell} level {lvl} ({n},{c},{h},{w})"
+        with torch.inference_mode():
+            got, again = FH.flow_head(x, wt, b), FH.flow_head(x, wt, b)
+            err = _compare(f"flow_head K11 {label}", got,
+                           FH.flow_head_plain(x, wt, b))
+            if not torch.equal(got, again):
+                raise AssertionError(f"flow_head {label}: two runs differ")
+            k11 = statistics.median(cuda_times_ms(
+                lambda: FH.flow_head(x, wt, b), warmup=3, iters=20, inner=10))
+            plain = statistics.median(cuda_times_ms(
+                lambda: FH.flow_head_plain(x, wt, b), warmup=3, iters=20,
+                inner=10))
+            tuned = statistics.median(cuda_times_ms(
+                lambda: cudnn_benchmarked(FH.flow_head_plain, x, wt, b),
+                warmup=3, iters=20, inner=10))
+        nbytes = 4 * (x.numel() + wt.numel() + b.numel() + got.numel())
+        ops = 2 * wt.numel() * n * h * w
+        bound = max(nbytes / HBM_BYTES_S, ops / F32_FLOP_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_FLOP_S else \
+            "operations"
+        for key, v in (("k11", k11), ("plain", plain), ("tuned", tuned),
+                       ("bound", bound)):
+            total[(cell, key)] = total.get((cell, key), 0.0) + v
+        print(f"[times] K11 {label} (flow_head, tile rows and split "
+              f"{FH.plan(n, h, w, c, sms)}): {k11 * 1e3:.2f} us a launch "
+              f"with the wrapper (CUDA events, median of 20 runs of 10); "
+              f"plain (cuDNN conv2d, cudnn.benchmark off) {plain * 1e3:.2f} "
+              f"us, cuDNN autotuned {tuned * 1e3:.2f} us; bound "
+              f"{bound * 1e3:.2f} us by {by}: {bound / k11:.1%} of it, on "
+              f"{card}")
+        case = {"case": f"K11 {label}", "max_abs_err": err, "call_ms": k11,
+                "plain_ms": plain, "library_ms": tuned,
+                "bound_ms": bound, "bound_by": by}
+        if row is None:
+            row = {"name": "flow_head", "route": "cuda",
+                   "source": "vfidkr_torch/csrc/flow_head.cu",
+                   "replaces": "none: cuDNN's conv and bias add "
+                               "(vfidkr_tpu/models/pwcnet.py is XLA)",
+                   **case, "other_cases": []}
+        else:
+            row["other_cases"].append(case)
+        del x, wt, b, got, again
+    for cell in ("cells 1, 4", "cell 2"):
+        t = {k: total[(cell, k)] for k in ("k11", "plain", "tuned",
+                                           "bound")}
+        print(f"[heads] {cell}, all five heads: K11 {t['k11']:.4f} ms, "
+              f"plain {t['plain']:.4f}, cuDNN autotuned {t['tuned']:.4f}, "
+              f"bound {t['bound']:.4f} ms")
     torch.cuda.synchronize()
     return row
 
@@ -3581,8 +3685,9 @@ def main() -> None:
     sepconv_launches, k9_row = phase_sepconv(dev, card)
     dormant_launches["sepconv_video"] = sepconv_launches
     k10_row = phase_dense_conv(dev, card)
-    print(f"[time] the dormant ops, vestigial, PNG, SepConv and dense_conv "
-          f"phases "
+    k11_row = phase_flow_head(dev, card)
+    print(f"[time] the dormant ops, vestigial, PNG, SepConv, dense_conv and "
+          f"flow_head phases "
           f"checked and timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
@@ -3618,7 +3723,7 @@ def main() -> None:
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
-    for row in (k9_row, k10_row):
+    for row in (k9_row, k10_row, k11_row):
         name = row["name"]
         row["launches"] = sum(n[name] for n in per_path.values())
         row["launches_per_path"] = {p: n[name] for p, n in per_path.items()}

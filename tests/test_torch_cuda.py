@@ -292,7 +292,7 @@ def test_dain_cuda_matches_cpu(dev):
                                     "fused_resblocks": 0,
                                     "depth_flow_project_bwd": 0,
                                     "rectify_head": 1, "sepconv_pair": 0,
-                                    "dense_conv": 25}
+                                    "dense_conv": 25, "flow_head": 5}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -302,7 +302,8 @@ def test_dain_cuda_matches_cpu(dev):
 def test_record_launches_keeps_kernels_only(dev):
     """One float32 DAIN eval forward inside ``record_launches``: the records
     hold the launches of ``kernels.KERNELS`` alone (K1-K3 once each), while
-    ``kernels.LAUNCHES`` counts K8 once and K10 25 times besides."""
+    ``kernels.LAUNCHES`` counts K8 once, K10 25 times and K11 5 times
+    besides."""
     from vfidkr_torch import kernels
     from vfidkr_torch.models import DAIN
     g = torch.Generator().manual_seed(3)
@@ -318,7 +319,8 @@ def test_record_launches_keeps_kernels_only(dev):
     assert {n: names.count(n) for n in kernels.KERNELS} == {
         n: kernels.LAUNCHES[n] for n in kernels.KERNELS}
     assert {n: kernels.LAUNCHES[n] for n in kernels.UNRECORDED} == {
-        "rectify_head": 1, "sepconv_pair": 0, "dense_conv": 25}
+        "rectify_head": 1, "sepconv_pair": 0, "dense_conv": 25,
+        "flow_head": 5}
 
 
 def _grads_close(name, got, want):
@@ -457,7 +459,7 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "fused_resblocks": 0,
                                 "depth_flow_project_bwd": 0,
                                 "rectify_head": 1, "sepconv_pair": 0,
-                                "dense_conv": 25}
+                                "dense_conv": 25, "flow_head": 5}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -499,7 +501,7 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "fused_resblocks": 0,
                                     "depth_flow_project_bwd": 0,
                                     "rectify_head": 3, "sepconv_pair": 0,
-                                    "dense_conv": 25}
+                                    "dense_conv": 25, "flow_head": 5}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
@@ -620,7 +622,7 @@ def test_dain_slowmotion_train_step_cuda_matches_cpu(dev):
                                 "fused_resblocks": 0,
                                 "depth_flow_project_bwd": 1,
                                 "rectify_head": 1, "sepconv_pair": 0,
-                                "dense_conv": 25}
+                                "dense_conv": 25, "flow_head": 5}
     for k, v in gpu.state_dict().items():
         if k in frozen:
             assert torch.equal(v, frozen[k]), k
@@ -743,7 +745,7 @@ def test_dain_bf16_launches_fused_resblocks(dev):
                                 "fused_resblocks": 6,
                                 "depth_flow_project_bwd": 0,
                                 "rectify_head": 0, "sepconv_pair": 0,
-                                "dense_conv": 25}
+                                "dense_conv": 25, "flow_head": 5}
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()
@@ -1094,3 +1096,165 @@ def test_dense_conv_rejects_bad_inputs(dev):
     buf = torch.zeros(1, 128 + 13, 8, 16, device=dev)
     with pytest.raises(ValueError, match="autograd"):
         DC.dense_conv_into(buf, 128, wt.requires_grad_(), b)
+
+
+# K11, PWC-Net's flow heads: each value against the plain conv on the card
+# (cuDNN in float32, TF32 off) within ATOL x max(1, |plain|).  Float32 sums
+# of 5,000-6,000 terms in another order differ by about 1e-6 at these
+# scales; TF32 products would differ by 1e-3.
+_HEAD_C = {6: 529, 5: 661, 4: 629, 3: 597, 2: 565}
+# each level's map: cells 1 and 4 and cell 2 (batch 2), a B = 3 train step
+# at 256 x 448 (batch 6), cell 5's level 2 (batch 80), ragged frames, and C
+# that no split divides (37: 5 stages; 131: 17)
+_HEAD_CASES = ([("cells 1, 4", 2, _HEAD_C[lvl], 320 >> lvl, 512 >> lvl)
+                for lvl in (2, 3, 4, 5, 6)]
+               + [("cell 2", 2, _HEAD_C[lvl], 768 >> lvl, 1344 >> lvl)
+                  for lvl in (2, 3, 4, 5, 6)]
+               + [("batch 6", 6, _HEAD_C[lvl], 256 >> lvl, 448 >> lvl)
+                  for lvl in (2, 3, 4, 5, 6)]
+               + [("cell 5", 80, _HEAD_C[2], 64, 112),
+                  ("cell 5", 80, _HEAD_C[6], 4, 7),
+                  ("ragged", 2, 565, 37, 75), ("ragged", 2, 529, 5, 8),
+                  ("odd C", 2, 37, 20, 32), ("odd C", 3, 131, 9, 13)])
+
+
+def _head_inputs_k11(n, c, h, w, seed):
+    """A level's buffer in [-1, 1), the head's weights at the init's scale
+    (normal, std sqrt(2 / (9 C))) and the biases the benchmark draws."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(n, c, h, w, generator=g) * 2 - 1
+    wt = torch.randn(2, c, 3, 3, generator=g) * (2.0 / (9 * c)) ** 0.5
+    b = torch.randn(2, generator=g) * 0.01 + torch.tensor([0.53, -0.31])
+    return x, wt, b
+
+
+def _head_close(label, got, plain):
+    err = ((got - plain).abs() / plain.abs().clamp(min=1.0)).max().item()
+    assert err <= ATOL, (label, err)
+
+
+@pytest.mark.parametrize("label,n,c,h,w", _HEAD_CASES)
+def test_flow_head_kernel(dev, label, n, c, h, w):
+    """K11 at the plan's tile and split, one launch a call and no other
+    kernel, against the plain conv; two launches give the same bits."""
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import flow_head as FH
+    x, wt, b = (t.to(dev) for t in _head_inputs_k11(n, c, h, w, seed=h + c))
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = FH.flow_head(x, wt, b)
+        again = FH.flow_head(x, wt, b)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flow_head": 2}
+    assert got.shape == (n, 2, h, w) and got.is_contiguous()
+    assert torch.equal(got, again)
+    _head_close(label, got, F.conv2d(x, wt, b, padding=1))
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 597, 40, 64), (2, 131, 9, 13),
+                                     (2, 565, 37, 75)])
+def test_flow_head_every_tile_and_split(dev, n, c, h, w):
+    """Every tile and every split the kernel takes (1 to 16 blocks, at
+    most the stages of 8 channels, powers of two or not) gives the plain
+    conv's values; a split past the stages or 16 is refused."""
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    x, wt, b = (t.to(dev) for t in _head_inputs_k11(n, c, h, w, seed=c))
+    plain = F.conv2d(x, wt, b, padding=1)
+    stages = -(-c // 8)
+    for rows in (8, 16):
+        for split in range(1, min(16, stages) + 1):
+            out = torch.empty(n, 2, h, w, device=dev)
+            kernels.launch("flow_head", x, wt, b, out, n, c, h, w, rows,
+                           split)
+            _head_close((rows, split), out, plain)
+    out = torch.empty(n, 2, h, w, device=dev)
+    for rows, split in ((16, min(17, stages + 1)), (4, 1), (8, 0)):
+        with pytest.raises(RuntimeError, match="flow_head"):
+            kernels.launch("flow_head", x, wt, b, out, n, c, h, w, rows,
+                           split)
+
+
+def test_flow_head_gradients_match_cudnn(dev):
+    """Under autograd K11's Function gives the input, weight and bias
+    gradients of cuDNN's autograd of ``conv2d`` within 1e-5 of each
+    gradient's largest magnitude: its backward is the same
+    ``convolution_backward`` on the saved tensors.  A frozen input gets no
+    gradient."""
+    import torch.nn.functional as F
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import flow_head as FH
+    x, wt, b = _head_inputs_k11(2, 597, 40, 64, seed=19)
+    cot = torch.randn(2, 2, 40, 64,
+                      generator=torch.Generator().manual_seed(20)).to(dev)
+    leaves = [t.to(dev).requires_grad_() for t in (x, wt, b)]
+    ref = [t.detach().clone().requires_grad_() for t in leaves]
+    before = dict(kernels.LAUNCHES)
+    out = FH.flow_head(*leaves)
+    assert _launched(before) == {"flow_head": 1}
+    assert type(out.grad_fn).__name__ == "_FlowHeadBackward"
+    want = F.conv2d(ref[0], ref[1], ref[2], padding=1)
+    _head_close("forward", out.detach(), want.detach())
+    got_g = torch.autograd.grad((out * cot).sum(), leaves)
+    want_g = torch.autograd.grad((want * cot).sum(), ref)
+    for name, a, e in zip("xwb", got_g, want_g):
+        err = (a - e).abs().max().item()
+        assert err <= 1e-5 * e.abs().max().item(), (name, err)
+    frozen = FH.flow_head(leaves[0].detach(), *leaves[1:])
+    gw, gb = torch.autograd.grad((frozen * cot).sum(), leaves[1:])
+    assert torch.allclose(gw, got_g[1], rtol=0,
+                          atol=1e-5 * gw.abs().max().item())
+
+
+def test_flow_head_rejects_bad_inputs(dev):
+    from vfidkr_torch.ops import flow_head as FH
+    x, wt, b = (t.to(dev) for t in _head_inputs_k11(1, 13, 8, 16, seed=1))
+    with pytest.raises(TypeError, match="float32"):
+        FH.flow_head(x.half(), wt, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        FH.flow_head(x.transpose(2, 3), wt, b)
+    with pytest.raises(ValueError, match="3x3"):
+        FH.flow_head(x, torch.zeros(3, 13, 3, 3, device=dev), b)
+    with pytest.raises(ValueError, match="different devices"):
+        FH.flow_head(x, wt.cpu(), b)
+
+
+def test_pwcnet_launches_flow_head_5_times(dev, monkeypatch):
+    """A PWC-Net forward launches K11 once a level, 5 times, without
+    autograd and under it, and no head reaches cuDNN's forward conv (the
+    module's own call raises here); its flow is the plain heads' within
+    1e-4 (every level's flow feeds the next level's warp)."""
+    import copy
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import pwcnet
+    from vfidkr_torch.models.pwcnet import PWCDCNet
+    from vfidkr_torch.ops import flow_head as FH
+    net = PWCDCNet(generator=torch.Generator().manual_seed(2)).to(dev)
+    g = torch.Generator().manual_seed(3)
+    im1, im2 = (torch.rand(1, 3, 128, 192, generator=g).to(dev)
+                for _ in range(2))
+    plain = copy.deepcopy(net)
+
+    def refuse(*args):
+        raise AssertionError("a flow head ran its module's conv")
+
+    for lvl in (6, 5, 4, 3, 2):
+        monkeypatch.setattr(getattr(net, f"predict_flow{lvl}"), "forward",
+                            refuse)
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = net.bidirectional(im1, im2)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"dense_conv": 25, "flow_head": 5}
+    traced = net(im1, im2)
+    traced.sum().backward()
+    torch.cuda.synchronize()
+    assert _launched(before) == {"dense_conv": 50, "flow_head": 10}
+    assert net.predict_flow3.weight.grad is not None
+    monkeypatch.setattr(pwcnet, "flow_head", FH.flow_head_plain)
+    with torch.inference_mode():
+        want = plain.bidirectional(im1, im2)
+    assert _launched(before) == {"dense_conv": 75, "flow_head": 10}
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)

@@ -6,7 +6,7 @@ wrapper under ``vfidkr_torch/ops`` launches its kernel through it.
 ``LAUNCHES[name]`` is a plain integer that ``launch`` raises by one each time
 it launches kernel ``name``, and nowhere else, so a run can show that its
 main path went through the kernels.  It counts every kernel: the entry
-points of K1-K7 in ``KERNELS`` and K8-K10 in ``UNRECORDED``.
+points of K1-K7 in ``KERNELS`` and K8-K11 in ``UNRECORDED``.
 ``reset_launches`` sets every count to 0.  The counts are raised under a
 lock: the shards of a row-sharded forward (``vfidkr_torch.parallel.spatial``)
 launch from threads of their own.
@@ -16,7 +16,10 @@ keeps its name and arguments, so that a check can hold every launch of a run
 to the kernel's plain version on the same inputs.  The launches of
 ``UNRECORDED`` are counted and not recorded: the benchmark turns every
 record into a roofline bound (``benchmark/lib/work.kernel_work``), which has
-no work count for K8-K10 and raises on them.
+no work count for K8-K11 and raises on them.
+
+``sm_count`` gives a device's SM count, from which the wrappers of K10 and
+K11 plan their tiles and splits.
 """
 
 from __future__ import annotations
@@ -33,11 +36,12 @@ KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
            "flow_project_finalize", "filter_interpolate_bwd",
            "flow_project_scatter_bwd", "filter_interpolate_ctx",
            "fused_resblocks", "depth_flow_project_bwd")
-UNRECORDED = ("rectify_head", "sepconv_pair", "dense_conv")
+UNRECORDED = ("rectify_head", "sepconv_pair", "dense_conv", "flow_head")
 LAUNCHES = dict.fromkeys(KERNELS + UNRECORDED, 0)
 _LOCK = threading.Lock()
 _RECORDS: list | None = None
 _ENTRY: dict = {}       # name -> _entry(name)
+_SMS: dict = {}         # device index -> SM count
 
 
 def reset_launches() -> None:
@@ -83,6 +87,17 @@ def check_inputs(name: str, *tensors: torch.Tensor,
         raise ValueError(f"{name}: tensors on different devices")
 
 
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (the current one without an
+    index)."""
+    idx = device.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _entry(name: str) -> tuple:
     """(kernel ``name``'s entry point, the positions of its pointer
     arguments in ``build.SIGNATURES``, whether its launches are recorded)."""
@@ -99,7 +114,8 @@ def launch(name: str, *args) -> None:
     stays as it is, a pointer into a tensor included); raise if the launch
     failed.  Only the pointer positions are inspected, and the device is
     switched only where it is not the current one: a PWC-Net forward
-    launches K10 25 times, and the host sets the pace of small frames."""
+    launches K10 25 times and K11 5 times, and the host sets the pace of
+    small frames."""
     entry = _ENTRY.get(name)
     if entry is None:
         entry = _ENTRY[name] = _entry(name)

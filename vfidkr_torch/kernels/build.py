@@ -69,6 +69,9 @@ SIGNATURES = {
     # tile rows, split, stream (K10, ops/dense_conv.py)
     "vfidkr_dense_conv": [_P, _LL, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
                           _I, _P],
+    # x, w, b, out, n, c, h, w, tile rows, split, stream (K11,
+    # ops/flow_head.py)
+    "vfidkr_flow_head": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -13,7 +13,9 @@ checkpoint (``conv1a.0.weight`` ... ``dc_conv7.weight``).  The reference's
   2-channel flow -> 4x4/s2 deconvs of the flow and of a 2-channel feature;
   each dense conv with its LeakyReLU is ``ops.dense_conv`` (the kernel K10
   on the card); without autograd a level writes its five outputs straight
-  into one buffer in the joined channel order, with no ``torch.cat``;
+  into one buffer in the joined channel order, with no ``torch.cat``; the
+  flow head ``predict_flow{lvl}`` is ``ops.flow_head`` (the kernel K11 on
+  the card), which reads that buffer in place;
 - a 7-conv dilated context network refines the finest flow;
 - the output flow is at 1/4 of the input resolution and 1/20 of the pixel
   flow.
@@ -21,8 +23,9 @@ checkpoint (``conv1a.0.weight`` ... ``dc_conv7.weight``).  The reference's
 Its four parts run in profiler spans (``utils.profiling.span``):
 ``vfidkr/flow/pyramid``, and per level ``vfidkr/flow/cost_volume`` (the
 warp and the correlation) and ``vfidkr/flow/decoder`` (the dense block, the
-flow head and the deconvs that feed the next level), then
-``vfidkr/flow/refine`` (the dilated context network and the final add).
+flow head and the deconvs that feed the next level; the head alone also in
+``vfidkr/flow/heads``), then ``vfidkr/flow/refine`` (the dilated context
+network and the final add).
 
 Init: kaiming normal (fan_in) on every conv and deconv, zero bias.
 """
@@ -35,6 +38,7 @@ from torch import nn
 from vfidkr_torch.models.layers import conv, deconv, leaky_relu
 from vfidkr_torch.ops import correlation_cost_volume, pwc_warp
 from vfidkr_torch.ops.dense_conv import dense_conv, dense_conv_into
+from vfidkr_torch.ops.flow_head import flow_head
 from vfidkr_torch.utils.profiling import span
 
 MD = 4                          # cost-volume max displacement
@@ -127,12 +131,20 @@ class PWCDCNet(nn.Module):
             start -= c.out_channels
         return buf
 
+    def _head(self, lvl, x):
+        """The level's 2-channel flow from its dense block's output:
+        ``predict_flow{lvl}``'s conv and bias, in the span
+        ``vfidkr/flow/heads``."""
+        m = getattr(self, f"predict_flow{lvl}")
+        with span("vfidkr/flow/heads"):
+            return flow_head(x, m.weight, m.bias)
+
     def _decode(self, pyr1, pyr2):
         with span("vfidkr/flow/cost_volume"):
             x = self._corr(pyr1[5], pyr2[5])
         with span("vfidkr/flow/decoder"):
             x = self._dense(6, x)
-            flow = self.predict_flow6(x)
+            flow = self._head(6, x)
             up_flow, up_feat = self.deconv6(flow), self.upfeat6(x)
         for lvl in (5, 4, 3, 2):
             f1, f2 = pyr1[lvl - 1], pyr2[lvl - 1]
@@ -141,7 +153,7 @@ class PWCDCNet(nn.Module):
             with span("vfidkr/flow/decoder"):
                 x = self._dense(lvl, torch.cat([corr, f1, up_flow, up_feat],
                                                1))
-                flow = getattr(self, f"predict_flow{lvl}")(x)
+                flow = self._head(lvl, x)
                 if lvl > 2:
                     up_flow = getattr(self, f"deconv{lvl}")(flow)
                     up_feat = getattr(self, f"upfeat{lvl}")(x)

@@ -51,7 +51,6 @@ LARGE_FROM = 4    # large-tile blocks an SM from which the large tile runs
 STAGE_C = 8       # input channels a stage of its ring
 MAX_SPLIT = 16    # the largest cluster (Hopper's, not portable)
 
-_SMS: dict = {}   # device index -> SM count
 _PLANS: dict = {}  # (n, h, w, cin, cout, sms) -> (rows, split)
 
 
@@ -118,13 +117,6 @@ def plan(n: int, h: int, w: int, cin: int, cout: int,
     return _PLANS[key]
 
 
-def _sms(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def _launch(x_ptr: int, xs: int, out_ptr: int, os: int, shape: tuple,
             w: torch.Tensor, b: torch.Tensor) -> None:
     """K10 from the input at ``x_ptr`` into the output at ``out_ptr``: (N,
@@ -133,7 +125,7 @@ def _launch(x_ptr: int, xs: int, out_ptr: int, os: int, shape: tuple,
     disjoint; ``shape`` is (N, Cin, H, W)."""
     n, cin, h, wd = shape
     cout = w.shape[0]
-    rows, split = plan(n, h, wd, cin, cout, _sms(w.device))
+    rows, split = plan(n, h, wd, cin, cout, kernels.sm_count(w.device))
     kernels.launch("dense_conv", x_ptr, xs, w, b, out_ptr, os, n, cin, cout,
                    h, wd, rows, split)
 
