@@ -151,7 +151,8 @@ session comes last (7), since host-bound timings read slower after one:
 5o. dense_conv: K10, PWC-Net's dense-block convs, once a conv in a DAIN
    forward (25 launches, PATHS["eval_forward"]); then at levels 2 and 3
    of cells 1 and 4 (a 512x320 pair), 2 (1344x768), 3 (B = 3 at 256x448,
-   both directions: batch 6) and level 2 of cell 5 (batch 80): the level's
+   both directions: batch 6), level 2 of cell 5 (batch 80) and every level
+   of cell 8 (SoftSplat's 1984x1152 pair, batch 2): the level's
    five convs through its buffer, each against float64 within DENSE_TOL of
    the sum of |x||w| + |b| on the input it read, the level twice bit for
    bit, and timed by CUDA events (median of 20 runs of 5 levels) beside its
@@ -161,13 +162,29 @@ session comes last (7), since host-bound timings read slower after one:
    the port); a level where K10 is not the fastest is printed as such;
 5p. flow_head: K11, PWC-Net's flow heads, once a level in a DAIN forward (5
    launches, PATHS["eval_forward"]); then at every level of cells 1 and 4
-   (a 512x320 pair) and 2 (1344x768), batch 2: against the plain conv on
-   the card within ATOL x max(1, |plain|), twice bit for bit, and timed by
-   CUDA events (median of 20 runs of 10 launches with the wrapper: the
-   small levels' times are the host's) beside its bytes bound (the buffer
-   read once, 3.35 TB/s), the plain version (cuDNN's conv2d,
+   (a 512x320 pair), 2 (1344x768) and 8 (1984x1152), batch 2: against the
+   plain conv on the card within ATOL x max(1, |plain|), twice bit for bit,
+   and timed by CUDA events (median of 20 runs of 10 launches with the
+   wrapper: the small levels' times are the host's) beside its bytes bound
+   (the buffer read once, 3.35 TB/s), the plain version (cuDNN's conv2d,
    cudnn.benchmark off, as the port ran before) and the same with
    cudnn.benchmark on (library_ms, never called by the port);
+5q. softsplat: SoftSplat (ModelConfig("SoftSplat"), the SoftSplat cell's
+   weights from benchmark/configs/softsplat.json, seed 0): its forward on
+   the card held to the CPU at 192x128; the video driver's frames_between
+   on SOFTSPLAT_PAIRS pairs of a 1920x1080 clip run at 1984x1152, the
+   launches counted from zero before each pair: K12 (softmax_splat) once a
+   level, K10 25 and K11 5 times in PWC-Net, no other kernel of the port
+   (PATHS["softsplat_forward"]), (1, 1080, 1920, 3) uint8 frames; then K12
+   at the cell's three levels (both directions of the padded frame: 35
+   channels at 1/1, 64 at 1/2, 96 at 1/4) and at the ragged (2,35,37,75)
+   against its plain version in float64, each value within K12_TOL of the
+   float64 sum of its terms' magnitudes, no tile taking the direct
+   atomics; its time a call (CUDA events, the wrapper, the scratch's
+   memset, the scatter and the division), split by torch.profiler into
+   those three device operations, beside its bytes bound
+   (benchmark/lib/softsplat.bound_s) and its plain version (index_add_,
+   float32);
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -214,7 +231,8 @@ session comes last (7), since host-bound timings read slower after one:
    vfidkr_torch.utils.trace around one DAIN eval forward, whose Chrome trace
    must hold K1-K3's device events;
 8. one JSON line of the kernels, with each kernel's launches in one run of
-   each path (K9's row from phase 5n), then the result line.
+   each path (K9's row from phase 5n, K10's from 5o, K11's from 5p, K12's
+   from 5q), then the result line.
 """
 
 from __future__ import annotations
@@ -259,6 +277,7 @@ from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_head as FH
 from vfidkr_torch.ops import flow_projection as FP
 from vfidkr_torch.ops import rectify as RB
+from vfidkr_torch.ops import softsplat as SS
 from vfidkr_torch.training import (TrainConfig, eval_step, make_optimizer,
                                    train_step)
 from vfidkr_torch.training.lr_schedule import PlateauState, plateau_step
@@ -270,17 +289,19 @@ from vfidkr_torch.utils.image_io import (ZLIB_LEVEL, read_png, read_rgb,
 # the module (``vfidkr_torch.ops`` exports its function of the same name)
 SC = importlib.import_module("vfidkr_torch.ops.separable_conv")
 
-# the flows and hole layouts that reach K7's and K3's branches, shared with
-# the card-only tests
+# the flows and hole layouts that reach K7's and K3's branches, and K12's
+# levels and float64 yardstick, shared with the card-only tests
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 import torch_geometry as geo  # noqa: E402
 import torch_png  # noqa: E402
+import torch_splat  # noqa: E402
 
 # the SepConv cell's configuration and weights, and K9's bound
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from benchmark.lib.cell import load_json  # noqa: E402
 from benchmark.lib.flow_dense import DENSE, OD, conv_work  # noqa: E402
 from benchmark.lib.local_conv import bound_s  # noqa: E402
+from benchmark.lib import softsplat as SS_WORK  # noqa: E402
 from benchmark.lib.weights import make_state, shapes_of  # noqa: E402
 
 N, H, W = 2, 256, 448           # both directions of one 448x256 frame pair
@@ -364,13 +385,28 @@ DENSE_SHAPES = (("cells 1, 4", 2, 2, (80, 128)), ("cells 1, 4", 2, 3, (40, 64)),
                 ("cell 2", 2, 2, (192, 336)), ("cell 2", 2, 3, (96, 168)),
                 ("cell 3", 6, 2, (64, 112)), ("cell 3", 6, 3, (32, 56)),
                 ("cell 5", 80, 2, (64, 112)))
+# SoftSplat's 1080p cell (cell 8): PWC-Net's five levels at 1984x1152
+DENSE_SHAPES += tuple(("cell 8", 2, lvl, (1152 >> lvl, 1984 >> lvl))
+                      for lvl in (2, 3, 4, 5, 6))
 DENSE_TOL = 2e-6
 # the flow_head phase: (cell, batch, level, map, the head's input channels)
 HEAD_C = {6: 529, 5: 661, 4: 629, 3: 597, 2: 565}
 HEAD_SHAPES = tuple((cell, 2, lvl, (hh >> lvl, ww >> lvl), HEAD_C[lvl])
                     for cell, hh, ww in (("cells 1, 4", 320, 512),
-                                         ("cell 2", 768, 1344))
+                                         ("cell 2", 768, 1344),
+                                         ("cell 8", 1152, 1984))
                     for lvl in (2, 3, 4, 5, 6))
+# the softsplat phase: the cell's 1920x1080 clip run at 1984x1152, 2 pairs;
+# the card against the CPU at 192x128 (float32 both: cuDNN's convs and K12's
+# atomic sums in other orders, carried through the GridNet); K12 at the
+# cell's three levels, both directions, and at a ragged frame; its error
+# over the float64 sum of its terms' magnitudes (float32 terms summed by
+# atomics in any order read about 1e-7; a dropped corner or weight reads 1)
+SOFTSPLAT_PAIRS = 2
+SOFTSPLAT_CPU_ATOL = 1e-4
+K12_SHAPES = SS_WORK.levels(2, *SEPCONV_PADDED, (35, 64, 96)) + \
+    [(2, 35, 37, 75)]
+K12_TOL = 1e-5
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -468,6 +504,10 @@ PATHS["dormant_ops"] = {}
 PATHS["vestigial_eval"] = dict(PATHS["eval_forward"])
 # SepConv's path launches K9 alone, once a pair
 PATHS["sepconv_video"] = {"sepconv_pair": SEPCONV_PAIRS}
+# a SoftSplat forward: K12 once a level (both directions in one launch),
+# PWC-Net's K10 and K11
+PATHS["softsplat_forward"] = {"softmax_splat": 3, "dense_conv": 25,
+                              "flow_head": 5}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1,
@@ -3296,13 +3336,15 @@ def phase_png_depths(dev: torch.device, card: str) -> None:
         raise AssertionError(f"the depth-eval CLI: {result}")
 
 
-def make_sepconv_model(dev) -> torch.nn.Module:
-    """SepConv built by ``ModelConfig`` (which turns cuDNN's autotuner on)
-    with the SepConv cell's weights from seed 0, in eval mode."""
+def make_cell_model(dev, net="SepConv", config="sepconv"
+                    ) -> torch.nn.Module:
+    """``net`` built by ``ModelConfig`` (which turns cuDNN's autotuner on for
+    SepConv) with its cell's weights (``benchmark/configs/<config>.json``)
+    from seed 0, in eval mode."""
     config = load_json(Path(__file__).resolve().parent / "benchmark" /
-                       "configs" / "sepconv.json")
+                       "configs" / f"{config}.json")
     with torch.device("meta"):
-        model = ModelConfig("SepConv").build()
+        model = ModelConfig(net).build()
     state = make_state(shapes_of(model), config, 0, dev)
     model = model.to_empty(device=dev)
     model.load_state_dict(state, strict=True)
@@ -3348,7 +3390,7 @@ def phase_sepconv(dev: torch.device, card: str) -> tuple[dict, dict]:
     kernels line)."""
     saved = torch.backends.cudnn.benchmark
     try:
-        model = make_sepconv_model(dev)
+        model = make_cell_model(dev)
         if not torch.backends.cudnn.benchmark:
             raise AssertionError("ModelConfig('SepConv').build() left "
                                  "cuDNN's autotuner off")
@@ -3642,6 +3684,134 @@ def phase_flow_head(dev: torch.device, card: str) -> dict:
     return row
 
 
+
+def _compare_k12(label, x, flow, z) -> float:
+    """K12 against its plain version in float64
+    (``torch_splat.float64_splat``): each value's error over the float64
+    sum of its terms' magnitudes at most K12_TOL, no direct tile;
+    two launches within K12_TOL of each other likewise (atomic sums in any
+    order).  Returns max |kernel - float64|."""
+    with torch.inference_mode():
+        got, direct = SS.softmax_splat_counted(x, flow, z)
+        again = SS.softmax_splat(x, flow, z)
+        want, scale = torch_splat.float64_splat(x, flow, z)
+        scale += 1e-30
+        err = (got.double() - want).abs()
+        rel = (err / scale).max().item()
+        rerun = ((got.double() - again.double()).abs() / scale).max().item()
+        worst = err.max().item()
+    print(f"[kernels] softmax_splat K12 {label}: error over the sum of "
+          f"|terms| {rel:.3e} against float64 (tolerance {K12_TOL:.0e}); max "
+          f"|kernel - float64| {worst:.3e}; two launches {rerun:.3e} apart "
+          f"over the same; direct tiles {direct}")
+    if not (rel <= K12_TOL and rerun <= K12_TOL and direct == 0):
+        raise AssertionError(f"softmax_splat {label}: failed its check")
+    return worst
+
+
+def _k12_split_ms(x, flow, z, calls=10) -> dict:
+    """Device ms a call of K12's three device operations by torch.profiler:
+    the scratch's memset, the scatter and the division."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        SS.softmax_splat(x, flow, z)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                SS.softmax_splat(x, flow, z)
+            torch.cuda.synchronize()
+    parts = {"memset": 0.0, "scatter": 0.0, "division": 0.0}
+    for s0, e0, name in _device_events(prof):
+        key = ("memset" if name.startswith("Memset") else
+               "scatter" if "softmax_splat_scatter" in name else
+               "division" if "softmax_splat_normalize" in name else None)
+        if key is None:
+            raise AssertionError(f"K12 launched {name}")
+        parts[key] += (e0 - s0) / 1e3 / calls
+    return parts
+
+
+def phase_softsplat(dev: torch.device, card: str) -> tuple[dict, dict]:
+    """SoftSplat on the card against the CPU, the video driver's per-pair
+    path at 1080p with its launches counted, and K12 at the cell's levels
+    against float64, timed beside its bound and its plain version.
+    Returns (a pair's launches of the port's kernels, K12's row of the
+    kernels line)."""
+    model = make_cell_model(dev, "SoftSplat", "softsplat")
+    g = torch.Generator().manual_seed(23)
+    h, w = SEPCONV_CPU_HW
+    i0, i2 = make_frames(g, h, w)
+    with torch.inference_mode():
+        out = model(i0.to(dev), i2.to(dev))["outputs"][-1]
+        ref = copy.deepcopy(model).cpu()(i0, i2)["outputs"][-1]
+    _hold_to_cpu("softsplat", [(f"out {h}x{w}", out, ref,
+                                SOFTSPLAT_CPU_ATOL)])
+
+    h, w = SEPCONV_HW
+    clip = make_clip(g, SOFTSPLAT_PAIRS + 1, h, w)
+    times = []
+    a_in, pads = interpolate_video.to_input(clip[0], dev)
+    for k in range(SOFTSPLAT_PAIRS):
+        b_in, _ = interpolate_video.to_input(clip[k + 1], dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        frames = interpolate_video.frames_between(model, a_in, b_in,
+                                                  pads).cpu()
+        times.append(time.perf_counter() - t)
+        launches = dict(kernels.LAUNCHES)
+        _check_launches("softsplat_forward", launches)
+        if tuple(frames.shape) != (1, h, w, 3) or frames.dtype != torch.uint8:
+            raise AssertionError(f"softsplat frames {tuple(frames.shape)} "
+                                 f"{frames.dtype}")
+        if tuple(b_in.shape[2:]) != SEPCONV_PADDED:
+            raise AssertionError(f"padded to {tuple(b_in.shape[2:])}")
+        a_in = b_in
+    print(f"[softsplat] the video driver's path, {SOFTSPLAT_PAIRS} pairs at "
+          f"{w}x{h} run at {SEPCONV_PADDED[1]}x{SEPCONV_PADDED[0]}: launches "
+          f"a pair {launches}; frames (1, {h}, {w}, 3) uint8; host s a pair "
+          f"{[round(x, 4) for x in times]} on {card}")
+    del model, a_in, b_in, out
+    torch.cuda.empty_cache()
+
+    row = None
+    for n, c, h, w in K12_SHAPES:
+        x, flow, z = torch_splat.level_inputs(n, c, h, w, dev)
+        label = f"({n},{c},{h},{w})"
+        err = _compare_k12(label, x, flow, z)
+        with torch.inference_mode():
+            call = statistics.median(cuda_times_ms(
+                lambda: SS.softmax_splat(x, flow, z), warmup=3, iters=20,
+                inner=5))
+            plain = statistics.median(cuda_times_ms(
+                lambda: SS.softmax_splat_plain(x, flow, z), warmup=1,
+                iters=3))
+        parts = _k12_split_ms(x, flow, z)
+        nbytes, ops = SS_WORK.splat_work(n, c, h, w)
+        bound = SS_WORK.bound_s(n, c, h, w) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_FLOP_S else \
+            "operations"
+        print(f"[times] K12 {label} (softmax_splat): per call {call:.4f} ms "
+              f"with the wrapper (CUDA events, median of 20 runs of 5); "
+              f"device ms a call by torch.profiler: memset "
+              f"{parts['memset']:.4f}, scatter {parts['scatter']:.4f}, "
+              f"division {parts['division']:.4f}; plain (index_add_) "
+              f"{plain:.3f} ms (median of 3); bound {bound:.4f} ms by {by}: "
+              f"{bound / call:.1%} of it, on {card}")
+        case = {"case": f"K12 {label}", "max_abs_err": err, "call_ms": call,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "device_ms_split": parts}
+        if row is None:
+            row = {"name": "softmax_splat", "route": "cuda",
+                   "source": "vfidkr_torch/csrc/softmax_splat.cu",
+                   "replaces": "none: the JAX package has no forward splat "
+                               "of features (plain version: index_add_)",
+                   **case, "other_cases": []}
+        else:
+            row["other_cases"].append(case)
+        del x, flow, z
+    torch.cuda.synchronize()
+    return launches, row
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3686,8 +3856,10 @@ def main() -> None:
     dormant_launches["sepconv_video"] = sepconv_launches
     k10_row = phase_dense_conv(dev, card)
     k11_row = phase_flow_head(dev, card)
-    print(f"[time] the dormant ops, vestigial, PNG, SepConv, dense_conv and "
-          f"flow_head phases "
+    softsplat_launches, k12_row = phase_softsplat(dev, card)
+    dormant_launches["softsplat_forward"] = softsplat_launches
+    print(f"[time] the dormant ops, vestigial, PNG, SepConv, dense_conv, "
+          f"flow_head and SoftSplat phases "
           f"checked and timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
@@ -3723,7 +3895,7 @@ def main() -> None:
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
-    for row in (k9_row, k10_row, k11_row):
+    for row in (k9_row, k10_row, k11_row, k12_row):
         name = row["name"]
         row["launches"] = sum(n[name] for n in per_path.values())
         row["launches_per_path"] = {p: n[name] for p, n in per_path.items()}

@@ -292,7 +292,8 @@ def test_dain_cuda_matches_cpu(dev):
                                     "fused_resblocks": 0,
                                     "depth_flow_project_bwd": 0,
                                     "rectify_head": 1, "sepconv_pair": 0,
-                                    "dense_conv": 25, "flow_head": 5}
+                                    "dense_conv": 25, "flow_head": 5,
+                                    "softmax_splat": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -320,7 +321,7 @@ def test_record_launches_keeps_kernels_only(dev):
         n: kernels.LAUNCHES[n] for n in kernels.KERNELS}
     assert {n: kernels.LAUNCHES[n] for n in kernels.UNRECORDED} == {
         "rectify_head": 1, "sepconv_pair": 0, "dense_conv": 25,
-        "flow_head": 5}
+        "flow_head": 5, "softmax_splat": 0}
 
 
 def _grads_close(name, got, want):
@@ -459,7 +460,8 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "fused_resblocks": 0,
                                 "depth_flow_project_bwd": 0,
                                 "rectify_head": 1, "sepconv_pair": 0,
-                                "dense_conv": 25, "flow_head": 5}
+                                "dense_conv": 25, "flow_head": 5,
+                                "softmax_splat": 0}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -501,7 +503,8 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "fused_resblocks": 0,
                                     "depth_flow_project_bwd": 0,
                                     "rectify_head": 3, "sepconv_pair": 0,
-                                    "dense_conv": 25, "flow_head": 5}
+                                    "dense_conv": 25, "flow_head": 5,
+                                    "softmax_splat": 0}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
@@ -622,7 +625,8 @@ def test_dain_slowmotion_train_step_cuda_matches_cpu(dev):
                                 "fused_resblocks": 0,
                                 "depth_flow_project_bwd": 1,
                                 "rectify_head": 1, "sepconv_pair": 0,
-                                "dense_conv": 25, "flow_head": 5}
+                                "dense_conv": 25, "flow_head": 5,
+                                "softmax_splat": 0}
     for k, v in gpu.state_dict().items():
         if k in frozen:
             assert torch.equal(v, frozen[k]), k
@@ -745,7 +749,8 @@ def test_dain_bf16_launches_fused_resblocks(dev):
                                 "fused_resblocks": 6,
                                 "depth_flow_project_bwd": 0,
                                 "rectify_head": 0, "sepconv_pair": 0,
-                                "dense_conv": 25, "flow_head": 5}
+                                "dense_conv": 25, "flow_head": 5,
+                                "softmax_splat": 0}
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()
@@ -876,6 +881,8 @@ _DENSE_OD = {6: 81, 5: 213, 4: 181, 3: 149, 2: 117}
 _DENSE_LEVELS = ([("cells 1, 4", 2, lvl, 320 >> lvl, 512 >> lvl)
                   for lvl in (2, 3, 4, 5, 6)]
                  + [("cell 2", 2, lvl, 768 >> lvl, 1344 >> lvl)
+                    for lvl in (2, 3, 4, 5, 6)]
+                 + [("cell 8", 2, lvl, 1152 >> lvl, 1984 >> lvl)
                     for lvl in (2, 3, 4, 5, 6)])
 
 
@@ -924,11 +931,11 @@ def _dense_errors(buf, ws, bs):
 
 @pytest.mark.parametrize("cell,n,lvl,h,w", _DENSE_LEVELS)
 def test_dense_conv_kernel(dev, cell, n, lvl, h, w):
-    """K10 at each level of cells 1, 4 and 2: the five convs through the
-    level's buffer, each held to float64 on the input it read, one launch a
-    conv and no other kernel; the level run twice gives the same bits
-    (split tiles at cells 1 and 4's levels 3 to 6, unsplit at cell 2's
-    level 2)."""
+    """K10 at each level of cells 1, 4, 2 and 8 (SoftSplat's 1080p): the
+    five convs through the level's buffer, each held to float64 on the input
+    it read, one launch a conv and no other kernel; the level run twice
+    gives the same bits (split tiles at cells 1 and 4's levels 3 to 6,
+    unsplit at cell 2's level 2)."""
     from vfidkr_torch import kernels
     x, ws, bs = _dense_inputs(n, h, w, _DENSE_OD[lvl], seed=30 + lvl)
     x, ws, bs = x.to(dev), [t.to(dev) for t in ws], [t.to(dev) for t in bs]
@@ -1103,12 +1110,15 @@ def test_dense_conv_rejects_bad_inputs(dev):
 # of 5,000-6,000 terms in another order differ by about 1e-6 at these
 # scales; TF32 products would differ by 1e-3.
 _HEAD_C = {6: 529, 5: 661, 4: 629, 3: 597, 2: 565}
-# each level's map: cells 1 and 4 and cell 2 (batch 2), a B = 3 train step
+# each level's map: cells 1 and 4, cell 2 and cell 8 (SoftSplat at 1984 x
+# 1152; batch 2), a B = 3 train step
 # at 256 x 448 (batch 6), cell 5's level 2 (batch 80), ragged frames, and C
 # that no split divides (37: 5 stages; 131: 17)
 _HEAD_CASES = ([("cells 1, 4", 2, _HEAD_C[lvl], 320 >> lvl, 512 >> lvl)
                 for lvl in (2, 3, 4, 5, 6)]
                + [("cell 2", 2, _HEAD_C[lvl], 768 >> lvl, 1344 >> lvl)
+                  for lvl in (2, 3, 4, 5, 6)]
+               + [("cell 8", 2, _HEAD_C[lvl], 1152 >> lvl, 1984 >> lvl)
                   for lvl in (2, 3, 4, 5, 6)]
                + [("batch 6", 6, _HEAD_C[lvl], 256 >> lvl, 448 >> lvl)
                   for lvl in (2, 3, 4, 5, 6)]

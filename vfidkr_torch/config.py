@@ -29,8 +29,8 @@ import torch
 if TYPE_CHECKING:
     from vfidkr_torch.training.train_state import TrainConfig
 
-NET_NAMES = ("DAIN", "DAIN_slowmotion", "SepConv")
-# the networks the trainer trains (SepConv is evaluation only)
+NET_NAMES = ("DAIN", "DAIN_slowmotion", "SepConv", "SoftSplat")
+# the networks the trainer trains (SepConv and SoftSplat are evaluation only)
 TRAIN_NET_NAMES = ("DAIN", "DAIN_slowmotion")
 
 
@@ -44,8 +44,8 @@ def _fixed_time_step(net_name: str) -> float | None:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """netName / time_step (``my_args.py:14-38``) and the compute dtype.  A
-    network that interpolates at one time step only (DAIN, SepConv: t = 0.5)
-    refuses any other."""
+    network that interpolates at one time step only (DAIN, SepConv,
+    SoftSplat: t = 0.5) refuses any other."""
     net_name: str = "DAIN"
     time_step: float = 0.5
     compute_dtype: str = "float32"
@@ -98,7 +98,7 @@ class EvalConfig:
     """save_which and the padding policy (``my_args.py:40``;
     ``demo_MiddleBury.py:294``)."""
     # 0: blended, 1: rectified; -1, the last, is DAIN's rectified frame and
-    # SepConv's one output
+    # SepConv's and SoftSplat's one output
     save_which: int = -1
     pad_multiple: int = 128
     min_pad: int = 32
@@ -156,7 +156,7 @@ def add_save_which_flag(ap) -> None:
     ap.add_argument("--save-which", type=int, default=EvalConfig.save_which,
                     help="0: blended output, 1: rectified; default -1, the "
                          "network's last output (DAIN's rectified frame, "
-                         "SepConv's only one)")
+                         "SepConv's and SoftSplat's only one)")
 
 
 def add_device_flag(ap) -> None:

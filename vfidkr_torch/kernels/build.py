@@ -72,6 +72,9 @@ SIGNATURES = {
     # x, w, b, out, n, c, h, w, tile rows, split, stream (K11,
     # ops/flow_head.py)
     "vfidkr_flow_head": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, flow, z, acc (scratch, N x (C+1) x H x W), out, n, c, h, w,
+    # direct-atomic tile count (or NULL), stream (K12, ops/softsplat.py)
+    "vfidkr_softmax_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _LIB = None

@@ -1,7 +1,7 @@
-"""DAIN, DAIN_slowmotion and SepConv networks, NCHW (see
+"""DAIN, DAIN_slowmotion, SepConv and SoftSplat networks, NCHW (see
 ``vfidkr_torch/__init__.py``), and the name-keyed model lookup of
 ``vfidkr_tpu/models/__init__.py`` (reference ``networks/__init__.py``),
-which adds SepConv to the JAX package's two."""
+which adds SepConv and SoftSplat to the JAX package's two."""
 
 from vfidkr_torch.models.dain import DAIN, DAINSlowMotion
 from vfidkr_torch.models.megadepth import MegaDepthHourglass
@@ -11,11 +11,13 @@ from vfidkr_torch.models.resblock import (MultipleBasicBlock, ResBasicBlock,
                                           multiple_basic_block_4)
 from vfidkr_torch.models.s2df import S2DF, s2df_3dense
 from vfidkr_torch.models.sepconv import SepConv
+from vfidkr_torch.models.softsplat import SoftSplat
 
 MODEL_REGISTRY = {
     "DAIN": DAIN,
     "DAIN_slowmotion": DAINSlowMotion,
     "SepConv": SepConv,
+    "SoftSplat": SoftSplat,
 }
 
 
@@ -30,6 +32,6 @@ def build_model(name: str, **kwargs):
 
 __all__ = ["DAIN", "DAINSlowMotion", "BranchHead", "MegaDepthHourglass",
            "MonoNet5", "MultipleBasicBlock", "PWCDCNet", "ResBasicBlock",
-           "S2DF", "SepConv", "multiple_basic_block_4", "s2df_3dense",
+           "S2DF", "SepConv", "SoftSplat", "multiple_basic_block_4", "s2df_3dense",
            "MODEL_REGISTRY",
            "build_model"]

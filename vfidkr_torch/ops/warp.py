@@ -10,9 +10,14 @@
   which no model calls): sample at ``(x + fx, y + fy)``, valid iff
   ``0 <= x2 < W`` and ``0 <= y2 < H`` (an exclusive upper bound, unlike the
   filter interpolation's), the taps clamped to the frame, 0 where invalid.
+* ``backwarp``, Softmax Splatting's warp for its importance metric
+  (``models/softsplat.py``): bilinear at exactly ``(x + fx, y + fy)``, each
+  of the four taps 0 where it lies outside the frame.  ``pwc_warp``'s
+  normalisation by ``W - 1`` under ``align_corners=False`` and its mask are
+  PWC-Net's quirks, not this metric's.
 
-Both are plain PyTorch on every device, not a fallback: the JAX package has
-no Pallas kernel here.
+All three are plain PyTorch on every device, not a fallback: the JAX package
+has no Pallas kernel here.
 """
 
 from __future__ import annotations
@@ -67,3 +72,26 @@ def interpolate_bilinear(image: torch.Tensor,
     out = ((1 - a) * (1 - b) * take(y0, x0) + a * (1 - b) * take(y0, x1)
            + (1 - a) * b * take(y1, x0) + a * b * take(y1, x1))
     return torch.where(valid.unsqueeze(1), out, 0.0)
+
+
+def backwarp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward-warp ``x`` (N,C,H,W) by ``flow`` (N,2,H,W) (fx, fy):
+    ``out[c, y, x]`` is the bilinear sample of ``x`` at ``(x + fx, y +
+    fy)``, a tap outside the frame reading 0."""
+    n, c, h, w = x.shape
+    qx = torch.arange(w, dtype=x.dtype, device=x.device) + flow[:, 0]
+    qy = torch.arange(h, dtype=x.dtype, device=x.device).view(h, 1) \
+        + flow[:, 1]
+    x0, y0 = torch.floor(qx), torch.floor(qy)
+    ax, ay = (qx - x0).unsqueeze(1), (qy - y0).unsqueeze(1)
+    flat = x.reshape(n, c, h * w)
+    out = 0.0
+    for dy, wy in ((0, 1.0 - ay), (1, ay)):
+        for dx, wx in ((0, 1.0 - ax), (1, ax)):
+            cx, cy = x0 + dx, y0 + dy
+            inside = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
+            lin = (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).long()
+            tap = torch.gather(flat, 2, lin.view(n, 1, h * w).expand(
+                n, c, h * w)).view(n, c, h, w)
+            out = out + torch.where(inside.unsqueeze(1), tap, 0.0) * (wx * wy)
+    return out
