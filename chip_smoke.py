@@ -174,7 +174,7 @@ session comes last (7), since host-bound timings read slower after one:
    the card held to the CPU at 192x128; the video driver's frames_between
    on SOFTSPLAT_PAIRS pairs of a 1920x1080 clip run at 1984x1152, the
    launches counted from zero before each pair: K12 (softmax_splat) once a
-   level, K10 25 and K11 5 times in PWC-Net, no other kernel of the port
+   level, K10 25, K11 and K13 5 times in PWC-Net, no other kernel of the port
    (PATHS["softsplat_forward"]), (1, 1080, 1920, 3) uint8 frames; then K12
    at the cell's three levels (both directions of the padded frame: 35
    channels at 1/1, 64 at 1/2, 96 at 1/4) and at the ragged (2,35,37,75)
@@ -185,6 +185,14 @@ session comes last (7), since host-bound timings read slower after one:
    those three device operations, beside its bytes bound
    (benchmark/lib/softsplat.bound_s) and its plain version (index_add_,
    float32);
+5r. correlation: K13, PWC-Net's cost volume and its LeakyReLU, through
+   its wrapper under autograd at every level of cells 1/4, 5 and 8 and at
+   ragged shapes, C = 1 and C that no stage divides (tests/torch_corr.py's
+   CASES): the forward and both gradients against the float64 plain
+   versions, each value within torch_corr.TOL of the float64 sum of its
+   terms' magnitudes; a second forward and backward the same bits; one
+   launch of each entry point a call and no other kernel of the port.
+   Checked, not timed (tools/bench_k13.py times it);
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -272,6 +280,7 @@ from vfidkr_torch.models.layers import upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
 from vfidkr_torch.ops import conv_head as CH
+from vfidkr_torch.ops import correlation as CV
 from vfidkr_torch.ops import dense_conv as DC
 from vfidkr_torch.ops import filter_interpolation as FI
 from vfidkr_torch.ops import flow_head as FH
@@ -294,6 +303,7 @@ SC = importlib.import_module("vfidkr_torch.ops.separable_conv")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 import torch_geometry as geo  # noqa: E402
 import torch_png  # noqa: E402
+import torch_corr  # noqa: E402
 import torch_splat  # noqa: E402
 
 # the SepConv cell's configuration and weights, and K9's bound
@@ -437,40 +447,44 @@ KERNELS = {
 }
 # launches of each kernel of kernels.LAUNCHES in one run of each path; the
 # others launch none.  PWC-Net launches K10 once a dense conv, 25 times a
-# forward (both directions in one batch), and K11 once a flow head, 5 times;
-# the float32 rectifier launches K8
+# forward (both directions in one batch), K11 once a flow head and K13 once
+# a cost volume, 5 times each (K13's backward 5 times a train step); the
+# float32 rectifier launches K8
 # once a call (one a DAIN forward, one a frame of a slow-motion forward),
 # the bf16 lane none.
 PATHS = {
     "eval_forward": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
                      "flow_project_finalize": 1, "rectify_head": 1,
-                     "dense_conv": 25, "flow_head": 5},
+                     "dense_conv": 25, "flow_head": 5, "correlation": 5},
     "train_step": {"filter_interpolate_fwd": 1, "flow_project_scatter": 1,
                    "filter_interpolate_bwd": 1,
                    "flow_project_scatter_bwd": 1, "rectify_head": 1,
-                   "dense_conv": 25, "flow_head": 5},
+                   "dense_conv": 25, "flow_head": 5, "correlation": 5,
+                   "correlation_bwd": 5},
     "slowmo_forward": {"filter_interpolate_fwd": 3,
                        "filter_interpolate_ctx": 3,
                        "flow_project_scatter": 3,
                        "flow_project_finalize": 3, "rectify_head": 3,
-                       "dense_conv": 25, "flow_head": 5},
+                       "dense_conv": 25, "flow_head": 5, "correlation": 5},
     # the bf16 lane: K4 launches once per conv of the trunk, six a call
     "eval_forward_bf16": {"filter_interpolate_fwd": 1,
                           "flow_project_scatter": 1,
                           "flow_project_finalize": 1, "fused_resblocks": 6,
-                          "dense_conv": 25, "flow_head": 5},
+                          "dense_conv": 25, "flow_head": 5,
+                          "correlation": 5},
     "slowmo_forward_bf16": {"filter_interpolate_fwd": 3,
                             "filter_interpolate_ctx": 3,
                             "flow_project_scatter": 3,
                             "flow_project_finalize": 3,
                             "fused_resblocks": 18, "dense_conv": 25,
-                            "flow_head": 5},
+                            "flow_head": 5, "correlation": 5},
     "middlebury_bf16": {"filter_interpolate_fwd": MB_PAIRS,
                         "flow_project_scatter": MB_PAIRS,
                         "flow_project_finalize": MB_PAIRS,
                         "fused_resblocks": 6 * MB_PAIRS,
                         "dense_conv": 25 * MB_PAIRS,
-                        "flow_head": 5 * MB_PAIRS},
+                        "flow_head": 5 * MB_PAIRS,
+                        "correlation": 5 * MB_PAIRS},
     # the context warp forward only: its flow and filter are detached and
     # the context nets frozen
     "slowmo_train_step": {"filter_interpolate_fwd": 1,
@@ -478,7 +492,8 @@ PATHS = {
                           "flow_project_scatter": 1,
                           "filter_interpolate_bwd": 1,
                           "depth_flow_project_bwd": 1, "rectify_head": 1,
-                          "dense_conv": 25, "flow_head": 5},
+                          "dense_conv": 25, "flow_head": 5, "correlation": 5,
+                          "correlation_bwd": 5},
 }
 # the video driver over VIDEO_PAIRS pairs, each a slow-motion forward, in
 # each lane
@@ -505,13 +520,14 @@ PATHS["vestigial_eval"] = dict(PATHS["eval_forward"])
 # SepConv's path launches K9 alone, once a pair
 PATHS["sepconv_video"] = {"sepconv_pair": SEPCONV_PAIRS}
 # a SoftSplat forward: K12 once a level (both directions in one launch),
-# PWC-Net's K10 and K11
+# PWC-Net's K10, K11 and K13
 PATHS["softsplat_forward"] = {"softmax_splat": 3, "dense_conv": 25,
-                              "flow_head": 5}
+                              "flow_head": 5, "correlation": 5}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1,
-                    "rectify_head": 1, "dense_conv": 25, "flow_head": 5}
+                    "rectify_head": 1, "dense_conv": 25, "flow_head": 5,
+                    "correlation": 5}
 # the case of each kernel that its row of the kernels line reports
 ROW_CASE = {"filter_interpolate_fwd": "K1 C=3",
             "flow_project_scatter": "K2 depth-weighted",
@@ -3812,6 +3828,62 @@ def phase_softsplat(dev: torch.device, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     return launches, row
 
+def phase_correlation(dev: torch.device) -> tuple[dict, dict]:
+    """K13 through its wrapper under autograd at torch_corr.CASES: the
+    forward and both gradients against float64, a second forward and
+    backward bit for bit, one launch of each entry point a call.  Checked,
+    not timed.  Returns K13's rows of the kernels line (``correlation``,
+    ``correlation_bwd``)."""
+    kernels.reset_launches()
+    rows = {}
+    for label, n, c, h, w in torch_corr.CASES:
+        f1, f2, g = torch_corr.inputs(n, c, h, w, seed=h * w + c, device=dev)
+        a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        runs = []
+        for _ in range(2):
+            out = CV.cost_volume(a1, a2)
+            runs.append((out, *torch.autograd.grad(out, (a1, a2), g)))
+        torch.cuda.synchronize()
+        errs = torch_corr.errors(f1, f2, g, *runs[0])
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"[kernels] correlation K13 {label} ({n},{c},{h},{w}): error "
+              f"over the sum of |terms| against float64, forward "
+              f"{errs['out'][0]:.3e}, grad_f1 {errs['grad_f1'][0]:.3e}, "
+              f"grad_f2 {errs['grad_f2'][0]:.3e} (tolerance "
+              f"{torch_corr.TOL:.0e}); max |kernel - float64| "
+              f"{errs['out'][1]:.3e} / {errs['grad_f1'][1]:.3e} / "
+              f"{errs['grad_f2'][1]:.3e}; a second forward and backward "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        if not (max(e for e, _ in errs.values()) <= torch_corr.TOL
+                and same):
+            raise AssertionError(f"correlation {label}: failed its check")
+        fwd = {"case": f"K13 {label} ({n},{c},{h},{w})",
+               "max_abs_err": errs["out"][1],
+               "max_err_over_terms": errs["out"][0]}
+        bwd = {"case": fwd["case"],
+               "max_abs_err": max(errs["grad_f1"][1], errs["grad_f2"][1]),
+               "max_err_over_terms": max(errs["grad_f1"][0],
+                                         errs["grad_f2"][0])}
+        for name, case in (("correlation", fwd), ("correlation_bwd", bwd)):
+            if name in rows:
+                rows[name]["other_cases"].append(case)
+            else:
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "vfidkr_torch/csrc/correlation.cu",
+                    "replaces": "none: PyTorch's materialised (N, C, 9, 9, "
+                                "H, W) product, sum, division and LeakyReLU "
+                                "(vfidkr_tpu/ops/correlation.py is XLA)",
+                    **case, "other_cases": []}
+        del f1, f2, g, a1, a2, runs
+    want = 2 * len(torch_corr.CASES)
+    _check_launches("correlation", dict(kernels.LAUNCHES),
+                    {"correlation": want, "correlation_bwd": want})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows["correlation"], rows["correlation_bwd"]
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3858,8 +3930,9 @@ def main() -> None:
     k11_row = phase_flow_head(dev, card)
     softsplat_launches, k12_row = phase_softsplat(dev, card)
     dormant_launches["softsplat_forward"] = softsplat_launches
+    k13_rows = phase_correlation(dev)
     print(f"[time] the dormant ops, vestigial, PNG, SepConv, dense_conv, "
-          f"flow_head and SoftSplat phases "
+          f"flow_head, SoftSplat and correlation phases "
           f"checked and timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
@@ -3895,7 +3968,7 @@ def main() -> None:
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
-    for row in (k9_row, k10_row, k11_row, k12_row):
+    for row in (k9_row, k10_row, k11_row, k12_row, *k13_rows):
         name = row["name"]
         row["launches"] = sum(n[name] for n in per_path.values())
         row["launches_per_path"] = {p: n[name] for p, n in per_path.items()}

@@ -24,6 +24,8 @@ torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.cuda
 
+import torch_corr  # noqa: E402  (tests/: K13's shapes and yardstick)
+
 ATOL = 1e-5
 
 
@@ -293,7 +295,8 @@ def test_dain_cuda_matches_cpu(dev):
                                     "depth_flow_project_bwd": 0,
                                     "rectify_head": 1, "sepconv_pair": 0,
                                     "dense_conv": 25, "flow_head": 5,
-                                    "softmax_splat": 0}
+                                    "softmax_splat": 0,
+                                    "correlation": 5, "correlation_bwd": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -303,7 +306,7 @@ def test_dain_cuda_matches_cpu(dev):
 def test_record_launches_keeps_kernels_only(dev):
     """One float32 DAIN eval forward inside ``record_launches``: the records
     hold the launches of ``kernels.KERNELS`` alone (K1-K3 once each), while
-    ``kernels.LAUNCHES`` counts K8 once, K10 25 times and K11 5 times
+    ``kernels.LAUNCHES`` counts K8 once, K10 25 times, K11 and K13 5 times
     besides."""
     from vfidkr_torch import kernels
     from vfidkr_torch.models import DAIN
@@ -321,7 +324,8 @@ def test_record_launches_keeps_kernels_only(dev):
         n: kernels.LAUNCHES[n] for n in kernels.KERNELS}
     assert {n: kernels.LAUNCHES[n] for n in kernels.UNRECORDED} == {
         "rectify_head": 1, "sepconv_pair": 0, "dense_conv": 25,
-        "flow_head": 5, "softmax_splat": 0}
+        "flow_head": 5, "softmax_splat": 0,
+        "correlation": 5, "correlation_bwd": 0}
 
 
 def _grads_close(name, got, want):
@@ -461,7 +465,8 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "depth_flow_project_bwd": 0,
                                 "rectify_head": 1, "sepconv_pair": 0,
                                 "dense_conv": 25, "flow_head": 5,
-                                "softmax_splat": 0}
+                                "softmax_splat": 0,
+                                "correlation": 5, "correlation_bwd": 5}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -504,7 +509,8 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "depth_flow_project_bwd": 0,
                                     "rectify_head": 3, "sepconv_pair": 0,
                                     "dense_conv": 25, "flow_head": 5,
-                                    "softmax_splat": 0}
+                                    "softmax_splat": 0,
+                                    "correlation": 5, "correlation_bwd": 0}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
@@ -626,7 +632,8 @@ def test_dain_slowmotion_train_step_cuda_matches_cpu(dev):
                                 "depth_flow_project_bwd": 1,
                                 "rectify_head": 1, "sepconv_pair": 0,
                                 "dense_conv": 25, "flow_head": 5,
-                                "softmax_splat": 0}
+                                "softmax_splat": 0,
+                                "correlation": 5, "correlation_bwd": 5}
     for k, v in gpu.state_dict().items():
         if k in frozen:
             assert torch.equal(v, frozen[k]), k
@@ -750,7 +757,8 @@ def test_dain_bf16_launches_fused_resblocks(dev):
                                 "depth_flow_project_bwd": 0,
                                 "rectify_head": 0, "sepconv_pair": 0,
                                 "dense_conv": 25, "flow_head": 5,
-                                "softmax_splat": 0}
+                                "softmax_splat": 0,
+                                "correlation": 5, "correlation_bwd": 0}
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()
@@ -1256,15 +1264,125 @@ def test_pwcnet_launches_flow_head_5_times(dev, monkeypatch):
     with torch.inference_mode():
         got = net.bidirectional(im1, im2)
     torch.cuda.synchronize()
-    assert _launched(before) == {"dense_conv": 25, "flow_head": 5}
+    assert _launched(before) == {"dense_conv": 25, "flow_head": 5,
+                                 "correlation": 5}
     traced = net(im1, im2)
     traced.sum().backward()
     torch.cuda.synchronize()
-    assert _launched(before) == {"dense_conv": 50, "flow_head": 10}
+    assert _launched(before) == {"dense_conv": 50, "flow_head": 10,
+                                 "correlation": 10, "correlation_bwd": 5}
     assert net.predict_flow3.weight.grad is not None
     monkeypatch.setattr(pwcnet, "flow_head", FH.flow_head_plain)
     with torch.inference_mode():
         want = plain.bidirectional(im1, im2)
-    assert _launched(before) == {"dense_conv": 75, "flow_head": 10}
+    assert _launched(before) == {"dense_conv": 75, "flow_head": 10,
+                                 "correlation": 15, "correlation_bwd": 5}
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+# K13, PWC-Net's cost volume and its LeakyReLU, forward and backward: each
+# value against the float64 plain versions, its error over the float64 sum
+# of its terms' magnitudes within torch_corr.TOL, at every level of cells
+# 1/4, 5 and 8 and at ragged shapes (torch_corr.CASES).
+def _corr_close(label, errs):
+    for key, (err, _) in errs.items():
+        assert err <= torch_corr.TOL, (label, key, err)
+
+
+@pytest.mark.parametrize("label,n,c,h,w", torch_corr.CASES)
+def test_correlation_kernel(dev, label, n, c, h, w):
+    """K13 through the wrapper under autograd: the output against float64,
+    both gradients against the float64 plain backward on the same saved
+    output (the slope is read from its sign: a value within rounding of 0
+    may take the other sign in float64), one launch of each entry point a
+    call and no other kernel of the port."""
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import correlation as CV
+    f1, f2, g = torch_corr.inputs(n, c, h, w, seed=h * w + c, device=dev)
+    a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    before = dict(kernels.LAUNCHES)
+    out = CV.cost_volume(a1, a2)
+    gf1, gf2 = torch.autograd.grad(out, (a1, a2), g)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"correlation": 1, "correlation_bwd": 1}
+    assert out.shape == (n, 81, h, w) and out.is_contiguous()
+    _corr_close(label, torch_corr.errors(f1, f2, g, out, gf1, gf2))
+
+
+@pytest.mark.parametrize("label,n,c,h,w", [torch_corr.CASES[0],
+                                           torch_corr.CASES[5],
+                                           torch_corr.CASES[-5]])
+def test_correlation_backward_is_bit_stable(dev, label, n, c, h, w):
+    """Two backward runs give the same bits (no atomics: each gradient
+    summed in one fixed order), both gradients and each alone; a frozen
+    input gets no gradient and its pass is not run."""
+    from vfidkr_torch.ops import correlation as CV
+    f1, f2, g = torch_corr.inputs(n, c, h, w, seed=7, device=dev)
+    with torch.no_grad():
+        out = CV.cost_volume(f1, f2)
+    first = CV._launch_bwd(f1, f2, out, g, True, True)
+    second = CV._launch_bwd(f1, f2, out, g, True, True)
+    only1 = CV._launch_bwd(f1, f2, out, g, True, False)
+    only2 = CV._launch_bwd(f1, f2, out, g, False, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                             second[1])
+    assert only1[1] is None and only2[0] is None
+    assert torch.equal(only1[0], first[0]) and torch.equal(only2[1], first[1])
+    a2 = f2.clone().requires_grad_()
+    (gf2,) = torch.autograd.grad(CV.cost_volume(f1, a2), (a2,), g)
+    assert torch.equal(gf2, first[1])
+
+
+def test_correlation_rejects_bad_inputs(dev):
+    """On the card the wrapper raises where the kernel does not take its
+    input; it never falls back to the plain version."""
+    from vfidkr_torch.ops import correlation as CV
+    f1, f2, _ = torch_corr.inputs(2, 8, 9, 16, seed=1, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        CV.cost_volume(f1.bfloat16(), f2.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        CV.cost_volume(f1.transpose(2, 3), f2.transpose(2, 3))
+    with pytest.raises(ValueError, match="differ"):
+        CV.cost_volume(f1, f2[:, :4].contiguous())
+    with pytest.raises(ValueError, match="displacement"):
+        CV.cost_volume(f1, f2, 3)
+    with pytest.raises(ValueError, match="different devices"):
+        CV.cost_volume(f1, f2.cpu())
+
+
+def test_pwcnet_launches_correlation_5_times(dev, monkeypatch):
+    """A PWC-Net forward launches K13 once a level, 5 times, with nothing
+    else new launched, without autograd and under it (and its backward 5
+    times); its flow is the plain cost volume's within 1e-4 (every level's
+    flow feeds the next level's warp)."""
+    import copy
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import pwcnet
+    from vfidkr_torch.models.pwcnet import PWCDCNet
+    from vfidkr_torch.ops import correlation as CV
+    net = PWCDCNet(generator=torch.Generator().manual_seed(4)).to(dev)
+    g = torch.Generator().manual_seed(5)
+    im1, im2 = (torch.rand(1, 3, 128, 192, generator=g).to(dev)
+                for _ in range(2))
+    plain = copy.deepcopy(net)
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = net.bidirectional(im1, im2)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"dense_conv": 25, "flow_head": 5,
+                                 "correlation": 5}
+    net(im1, im2).sum().backward()
+    torch.cuda.synchronize()
+    assert _launched(before) == {"dense_conv": 50, "flow_head": 10,
+                                 "correlation": 10, "correlation_bwd": 5}
+    assert net.conv6b[0].weight.grad is not None
+    monkeypatch.setattr(pwcnet, "cost_volume",
+                        lambda a, b, md: CV.cost_volume_plain(a, b))
+    with torch.inference_mode():
+        want = plain.bidirectional(im1, im2)
+    assert _launched(before) == {"dense_conv": 75, "flow_head": 15,
+                                 "correlation": 10, "correlation_bwd": 5}
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)

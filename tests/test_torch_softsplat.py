@@ -335,7 +335,7 @@ def test_k12_refuses_a_gradient(dev):
 @pytest.mark.cuda
 def test_softsplat_forward_launches_k12_three_times(dev):
     """One forward at 128 x 192: K12 once a level (two kernels each), K10
-    25 and K11 5 times in PWC-Net, nothing else of the port; the frame
+    25, K11 and K13 5 times in PWC-Net, nothing else of the port; the frame
     against the CPU's within 1e-4 (cuDNN's float32 convs and K12's atomic
     sums in other orders, carried through the GridNet)."""
     model = _model()
@@ -350,5 +350,6 @@ def test_softsplat_forward_launches_k12_three_times(dev):
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                 if v != before[k]}
-    assert launched == {"softmax_splat": 3, "dense_conv": 25, "flow_head": 5}
+    assert launched == {"softmax_splat": 3, "dense_conv": 25, "flow_head": 5,
+                        "correlation": 5}
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

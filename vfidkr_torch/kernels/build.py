@@ -75,6 +75,11 @@ SIGNATURES = {
     # x, flow, z, acc (scratch, N x (C+1) x H x W), out, n, c, h, w,
     # direct-atomic tile count (or NULL), stream (K12, ops/softsplat.py)
     "vfidkr_softmax_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # f1, f2, out, n, c, h, w, stream (K13, ops/correlation.py)
+    "vfidkr_correlation": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # f1, f2, out, g, grad_f1 (or NULL), grad_f2 (or NULL), n, c, h, w,
+    # stream (K13's backward)
+    "vfidkr_correlation_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -8,7 +8,8 @@ checkpoint (``conv1a.0.weight`` ... ``dc_conv7.weight``).  The reference's
 - a 6-level siamese conv pyramid of 16/32/64/96/128/196 channels, each level
   ``conv(s=2) -> conv -> conv`` with LeakyReLU(0.1);
 - per level from coarse to fine: an 81-channel cost volume over the other
-  image's features, warped by the upsampled coarser flow -> LeakyReLU -> a
+  image's features, warped by the upsampled coarser flow -> LeakyReLU (both
+  ``ops.correlation.cost_volume``, the kernel K13 on the card) -> a
   DenseNet block of 5 convs (128/128/96/64/32, newest output first) -> a
   2-channel flow -> 4x4/s2 deconvs of the flow and of a 2-channel feature;
   each dense conv with its LeakyReLU is ``ops.dense_conv`` (the kernel K10
@@ -35,8 +36,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vfidkr_torch.models.layers import conv, deconv, leaky_relu
-from vfidkr_torch.ops import correlation_cost_volume, pwc_warp
+from vfidkr_torch.models.layers import conv, deconv
+from vfidkr_torch.ops import pwc_warp
+from vfidkr_torch.ops.correlation import cost_volume
 from vfidkr_torch.ops.dense_conv import dense_conv, dense_conv_into
 from vfidkr_torch.ops.flow_head import flow_head
 from vfidkr_torch.utils.profiling import span
@@ -107,7 +109,7 @@ class PWCDCNet(nn.Module):
         return feats
 
     def _corr(self, a, b):
-        return leaky_relu(correlation_cost_volume(a, b, MD), 0.1)
+        return cost_volume(a, b, MD)
 
     def _dense(self, lvl, x):
         """(N, od, H, W) -> (N, od + 448, H, W): each conv's output joined
