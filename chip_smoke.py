@@ -193,6 +193,19 @@ session comes last (7), since host-bound timings read slower after one:
    terms' magnitudes; a second forward and backward the same bits; one
    launch of each entry point a call and no other kernel of the port.
    Checked, not timed (tools/bench_k13.py times it);
+5s. adacof: AdaCoF+ (ModelConfig("AdaCoFPlus"), the AdaCoF+ cell's weights
+   from benchmark/configs/adacof_plus.json, seed 0): its forward on the
+   card held to the CPU at 192x128; the video driver's frames_between on
+   ADACOF_PAIRS pairs of a 1920x1080 clip run at 1984x1152, the launches
+   counted from zero before each pair: K14 (adacof) once a pair and no
+   other kernel of the port (PATHS["adacof_forward"]), (1, 1080, 1920, 3)
+   uint8 frames; then K14 at tests/torch_adacof.py's CASES (the cell's
+   (1,3,1152,1984) at F = 11, D = 2, ragged shapes with offsets past the
+   staged box and the pad, F = 5 and 3, D = 1 and 3) against its plain
+   version in float64, each value within torch_adacof.TOL of its float64
+   value, two launches bit for bit; its time a call (CUDA events, the
+   wrapper) beside its bound (benchmark/lib/adacof.bound_s) and its plain
+   version (the tap loop); cuDNN's autotuner flag restored after;
 6. kernels: each kernel against its plain PyTorch version on the card, at
    the paths' shapes (2 x 256 x 448; the context warp at 196 channels; the
    projection also depth-weighted; K4 at (1,128,256,448), (1,128,512,704)
@@ -240,7 +253,7 @@ session comes last (7), since host-bound timings read slower after one:
    must hold K1-K3's device events;
 8. one JSON line of the kernels, with each kernel's launches in one run of
    each path (K9's row from phase 5n, K10's from 5o, K11's from 5p, K12's
-   from 5q), then the result line.
+   from 5q, K13's from 5r, K14's from 5s), then the result line.
 """
 
 from __future__ import annotations
@@ -279,6 +292,7 @@ from vfidkr_torch.models.dain import DIV_FLOW, TIMESTEP, VESTIGIAL
 from vfidkr_torch.models.layers import upsample_bilinear
 from vfidkr_torch.models.megadepth import (MegaDepthHourglass,
                                            depth_inv_from_log_depth)
+from vfidkr_torch.ops import adacof as AC
 from vfidkr_torch.ops import conv_head as CH
 from vfidkr_torch.ops import correlation as CV
 from vfidkr_torch.ops import dense_conv as DC
@@ -299,15 +313,18 @@ from vfidkr_torch.utils.image_io import (ZLIB_LEVEL, read_png, read_rgb,
 SC = importlib.import_module("vfidkr_torch.ops.separable_conv")
 
 # the flows and hole layouts that reach K7's and K3's branches, and K12's
-# levels and float64 yardstick, shared with the card-only tests
+# levels and float64 yardstick, K14's shapes and yardstick, shared with the
+# card-only tests
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 import torch_geometry as geo  # noqa: E402
 import torch_png  # noqa: E402
+import torch_adacof  # noqa: E402
 import torch_corr  # noqa: E402
 import torch_splat  # noqa: E402
 
 # the SepConv cell's configuration and weights, and K9's bound
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from benchmark.lib import adacof as AC_WORK  # noqa: E402
 from benchmark.lib.cell import load_json  # noqa: E402
 from benchmark.lib.flow_dense import DENSE, OD, conv_work  # noqa: E402
 from benchmark.lib.local_conv import bound_s  # noqa: E402
@@ -417,6 +434,12 @@ SOFTSPLAT_CPU_ATOL = 1e-4
 K12_SHAPES = SS_WORK.levels(2, *SEPCONV_PADDED, (35, 64, 96)) + \
     [(2, 35, 37, 75)]
 K12_TOL = 1e-5
+# the adacof phase: the cell's 1920x1080 clip run at 1984x1152, 2 pairs;
+# the card against the CPU at 192x128 (float32 both: cuDNN's convs against
+# the CPU's through the U-Net and the six 121-channel heads); K14 at
+# tests/torch_adacof.py's cell and ragged shapes against float64
+ADACOF_PAIRS = 2
+ADACOF_CPU_ATOL = 1e-4
 
 KERNELS = {
     "filter_interpolate_fwd": (
@@ -523,6 +546,9 @@ PATHS["sepconv_video"] = {"sepconv_pair": SEPCONV_PAIRS}
 # PWC-Net's K10, K11 and K13
 PATHS["softsplat_forward"] = {"softmax_splat": 3, "dense_conv": 25,
                               "flow_head": 5, "correlation": 5}
+# an AdaCoF+ forward: K14 once (both frames and the blend in one launch),
+# no other kernel of the port
+PATHS["adacof_forward"] = {"adacof": 1}
 # checked, not a column of the kernels line
 SLOWMO_EVAL_STEP = {"filter_interpolate_fwd": 1, "filter_interpolate_ctx": 1,
                     "flow_project_scatter": 1, "flow_project_finalize": 1,
@@ -3884,6 +3910,105 @@ def phase_correlation(dev: torch.device) -> tuple[dict, dict]:
     return rows["correlation"], rows["correlation_bwd"]
 
 
+def phase_adacof(dev: torch.device, card: str) -> tuple[dict, dict]:
+    """AdaCoF+ on the card against the CPU, the video driver's per-pair
+    path at 1080p with its launches counted, and K14 at
+    ``torch_adacof.CASES`` against float64, timed beside its bound and its
+    plain version.  Returns (a pair's launches of the port's kernels,
+    K14's row of the kernels line)."""
+    saved = torch.backends.cudnn.benchmark
+    try:
+        model = make_cell_model(dev, "AdaCoFPlus", "adacof_plus")
+        if not torch.backends.cudnn.benchmark:
+            raise AssertionError("ModelConfig('AdaCoFPlus').build() left "
+                                 "cuDNN's autotuner off")
+        g = torch.Generator().manual_seed(25)
+        h, w = SEPCONV_CPU_HW
+        i0, i2 = make_frames(g, h, w)
+        with torch.inference_mode():
+            out = model(i0.to(dev), i2.to(dev))["outputs"][-1]
+            ref = copy.deepcopy(model).cpu()(i0, i2)["outputs"][-1]
+        _hold_to_cpu("adacof", [(f"out {h}x{w}", out, ref,
+                                 ADACOF_CPU_ATOL)])
+
+        h, w = SEPCONV_HW
+        clip = make_clip(g, ADACOF_PAIRS + 1, h, w)
+        times = []
+        a_in, pads = interpolate_video.to_input(clip[0], dev)
+        for k in range(ADACOF_PAIRS):
+            b_in, _ = interpolate_video.to_input(clip[k + 1], dev)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            frames = interpolate_video.frames_between(model, a_in, b_in,
+                                                      pads).cpu()
+            times.append(time.perf_counter() - t)
+            launches = dict(kernels.LAUNCHES)
+            _check_launches("adacof_forward", launches)
+            if tuple(frames.shape) != (1, h, w, 3) or \
+                    frames.dtype != torch.uint8:
+                raise AssertionError(f"adacof frames {tuple(frames.shape)} "
+                                     f"{frames.dtype}")
+            if tuple(b_in.shape[2:]) != SEPCONV_PADDED:
+                raise AssertionError(f"padded to {tuple(b_in.shape[2:])}")
+            a_in = b_in
+        print(f"[adacof] the video driver's path, {ADACOF_PAIRS} pairs at "
+              f"{w}x{h} run at {SEPCONV_PADDED[1]}x{SEPCONV_PADDED[0]}: "
+              f"launches a pair {launches}; frames (1, {h}, {w}, 3) uint8; "
+              f"host s a pair (the first tunes cuDNN) "
+              f"{[round(x, 4) for x in times]} on {card}")
+        del model, a_in, b_in, out
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    torch.cuda.empty_cache()
+
+    row = None
+    for label, n, h, w, f, d, kind in torch_adacof.CASES:
+        args = torch_adacof.inputs(dev, n, h, w, f, kind, seed=h * w + f)
+        with torch.inference_mode():
+            got = AC.adacof_pair(*args, d)
+            again = AC.adacof_pair(*args, d)
+        ok, rel, err = torch_adacof.errors(args, d, got)
+        same = torch.equal(got, again)
+        shape = f"({n},3,{h},{w}) F={f} D={d}"
+        print(f"[kernels] adacof K14 {label} {shape}: error over the "
+              f"float64 value {rel:.3e} (tolerance {torch_adacof.TOL:.0e}); "
+              f"max |kernel - float64| {err:.3e}; two launches "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        if not (ok and same):
+            raise AssertionError(f"adacof {label}: failed its check")
+        with torch.inference_mode():
+            call = statistics.median(cuda_times_ms(
+                lambda: AC.adacof_pair(*args, d), warmup=3, iters=20,
+                inner=5))
+            plain = statistics.median(cuda_times_ms(
+                lambda: AC.adacof_pair_plain(*args, d), warmup=1, iters=3))
+        nbytes, ops = AC_WORK.sampling_work(n, 3, h, w, f * f)
+        bound = AC_WORK.bound_s(n, 3, h, w, f * f) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_FLOP_S else \
+            "operations"
+        print(f"[times] K14 {label} {shape} (adacof): per call {call:.4f} ms "
+              f"with the wrapper (CUDA events, median of 20 runs of 5); "
+              f"plain (the tap loop) {plain:.3f} ms (median of 3); bound "
+              f"{bound:.4f} ms by {by}: {bound / call:.1%} of it, on {card}")
+        case = {"case": f"K14 {label} {shape}", "max_abs_err": err,
+                "max_err_over_value": rel, "call_ms": call,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+        if row is None:
+            row = {"name": "adacof", "route": "cuda",
+                   "source": "vfidkr_torch/csrc/adacof.cu",
+                   "replaces": "none: the JAX package has no AdaCoF (plain "
+                               "version: adacof_pair_plain, a tap at a "
+                               "time)",
+                   **case, "other_cases": []}
+        else:
+            row["other_cases"].append(case)
+        del args, got, again
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def main() -> None:
     t0 = time.perf_counter()
     dev = phase_device()
@@ -3931,8 +4056,10 @@ def main() -> None:
     softsplat_launches, k12_row = phase_softsplat(dev, card)
     dormant_launches["softsplat_forward"] = softsplat_launches
     k13_rows = phase_correlation(dev)
+    adacof_launches, k14_row = phase_adacof(dev, card)
+    dormant_launches["adacof_forward"] = adacof_launches
     print(f"[time] the dormant ops, vestigial, PNG, SepConv, dense_conv, "
-          f"flow_head, SoftSplat and correlation phases "
+          f"flow_head, SoftSplat, correlation and AdaCoF+ phases "
           f"checked and timed: {time.perf_counter() - t0:.1f} s")
     cases = phase_kernels(dev)
     times = phase_call_times(cases)
@@ -3968,7 +4095,7 @@ def main() -> None:
             "other_cases": [{"case": key, **fields(key)}
                             for key, c in done.items()
                             if c["kernel"] == name and key != main_case]})
-    for row in (k9_row, k10_row, k11_row, k12_row, *k13_rows):
+    for row in (k9_row, k10_row, k11_row, k12_row, *k13_rows, k14_row):
         name = row["name"]
         row["launches"] = sum(n[name] for n in per_path.values())
         row["launches_per_path"] = {p: n[name] for p, n in per_path.items()}

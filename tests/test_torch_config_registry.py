@@ -46,14 +46,15 @@ def _holder(name, child):
 
 
 def test_registry_has_jax_names():
-    # the JAX package's two networks, and SepConv and SoftSplat, which only
-    # the port runs
-    assert set(M.MODEL_REGISTRY) == set(JM.MODEL_REGISTRY) | {"SepConv",
-                                                              "SoftSplat"}
+    # the JAX package's two networks, and SepConv, SoftSplat and AdaCoFPlus,
+    # which only the port runs
+    assert set(M.MODEL_REGISTRY) == set(JM.MODEL_REGISTRY) | {
+        "SepConv", "SoftSplat", "AdaCoFPlus"}
     assert M.MODEL_REGISTRY["DAIN"] is M.DAIN
     assert M.MODEL_REGISTRY["DAIN_slowmotion"] is M.DAINSlowMotion
     assert M.MODEL_REGISTRY["SepConv"] is M.SepConv
     assert M.MODEL_REGISTRY["SoftSplat"] is M.SoftSplat
+    assert M.MODEL_REGISTRY["AdaCoFPlus"] is M.AdaCoFPlus
     assert C.NET_NAMES == tuple(M.MODEL_REGISTRY)
     with pytest.raises(ValueError, match="net_name must be one of"):
         M.build_model("SuperSloMo")

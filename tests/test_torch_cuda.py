@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 pytestmark = pytest.mark.cuda
 
 import torch_corr  # noqa: E402  (tests/: K13's shapes and yardstick)
+import torch_adacof  # noqa: E402  (tests/: K14's shapes and yardstick)
 
 ATOL = 1e-5
 
@@ -296,7 +297,8 @@ def test_dain_cuda_matches_cpu(dev):
                                     "rectify_head": 1, "sepconv_pair": 0,
                                     "dense_conv": 25, "flow_head": 5,
                                     "softmax_splat": 0,
-                                    "correlation": 5, "correlation_bwd": 0}
+                                    "correlation": 5, "correlation_bwd": 0,
+                                    "adacof": 0}
         want = cpu(i0, i2)
     for key, atol in (("offsets", 1e-4), ("outputs", 2e-4)):
         for a, b in zip(got[key], want[key]):
@@ -325,7 +327,8 @@ def test_record_launches_keeps_kernels_only(dev):
     assert {n: kernels.LAUNCHES[n] for n in kernels.UNRECORDED} == {
         "rectify_head": 1, "sepconv_pair": 0, "dense_conv": 25,
         "flow_head": 5, "softmax_splat": 0,
-        "correlation": 5, "correlation_bwd": 0}
+        "correlation": 5, "correlation_bwd": 0,
+        "adacof": 0}
 
 
 def _grads_close(name, got, want):
@@ -466,7 +469,8 @@ def test_dain_train_step_cuda_matches_cpu(dev):
                                 "rectify_head": 1, "sepconv_pair": 0,
                                 "dense_conv": 25, "flow_head": 5,
                                 "softmax_splat": 0,
-                                "correlation": 5, "correlation_bwd": 5}
+                                "correlation": 5, "correlation_bwd": 5,
+                                "adacof": 0}
     want = train_step(cpu, make_optimizer(cpu, config), batch, config)
     torch.testing.assert_close(got["total"].cpu(), want["total"], rtol=1e-4,
                                atol=0)
@@ -510,7 +514,8 @@ def test_dain_slowmotion_cuda_matches_cpu(dev):
                                     "rectify_head": 3, "sepconv_pair": 0,
                                     "dense_conv": 25, "flow_head": 5,
                                     "softmax_splat": 0,
-                                    "correlation": 5, "correlation_bwd": 0}
+                                    "correlation": 5, "correlation_bwd": 0,
+                                    "adacof": 0}
         want = cpu(i0, i2)
     for a, b in zip(got["offsets"], want["offsets"]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
@@ -633,7 +638,8 @@ def test_dain_slowmotion_train_step_cuda_matches_cpu(dev):
                                 "rectify_head": 1, "sepconv_pair": 0,
                                 "dense_conv": 25, "flow_head": 5,
                                 "softmax_splat": 0,
-                                "correlation": 5, "correlation_bwd": 5}
+                                "correlation": 5, "correlation_bwd": 5,
+                                "adacof": 0}
     for k, v in gpu.state_dict().items():
         if k in frozen:
             assert torch.equal(v, frozen[k]), k
@@ -758,7 +764,8 @@ def test_dain_bf16_launches_fused_resblocks(dev):
                                 "rectify_head": 0, "sepconv_pair": 0,
                                 "dense_conv": 25, "flow_head": 5,
                                 "softmax_splat": 0,
-                                "correlation": 5, "correlation_bwd": 0}
+                                "correlation": 5, "correlation_bwd": 0,
+                                "adacof": 0}
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
         d = (a - b).abs()
@@ -1386,3 +1393,67 @@ def test_pwcnet_launches_correlation_5_times(dev, monkeypatch):
                                  "correlation": 10, "correlation_bwd": 5}
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+# K14, AdaCoF's sampling of both frames and their occlusion blend, at
+# tests/torch_adacof.py's shapes against its float64 yardstick.
+@pytest.mark.parametrize("label,n,h,w,f,d,kind", torch_adacof.CASES)
+def test_adacof_kernel(dev, label, n, h, w, f, d, kind):
+    from vfidkr_torch import kernels
+    from vfidkr_torch.ops import adacof as AC
+    args = torch_adacof.inputs(dev, n, h, w, f, kind, seed=h * w + f)
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = AC.adacof_pair(*args, d)
+        again = AC.adacof_pair(*args, d)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"adacof": 2}
+    assert torch.equal(got, again), label       # one fixed order, no atomics
+    ok, rel, _ = torch_adacof.errors(args, d, got)
+    assert ok, (label, rel)
+
+
+def test_adacof_forward_launches_k14_once_and_matches_cpu(dev):
+    """An AdaCoF+ forward at 128 x 192 launches K14 once and nothing else of
+    the library, and its frame is the CPU's within 1e-4 (cuDNN's float32
+    convs against the CPU's through the U-Net and the heads)."""
+    import copy
+    from vfidkr_torch import kernels
+    from vfidkr_torch.models import AdaCoFPlus
+    cpu = AdaCoFPlus(torch.Generator().manual_seed(6)).eval()
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.startswith(("moduleAlpha", "moduleBeta")) and \
+                    name.endswith("7.bias"):
+                p.add_(3.0)                  # samples a few px away
+    gpu = copy.deepcopy(cpu).to(dev)
+    g = torch.Generator().manual_seed(7)
+    i0, i2 = torch.rand(2, 1, 3, 128, 192, generator=g)
+    before = dict(kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = gpu(i0.to(dev), i2.to(dev))["outputs"][0]
+        want = cpu(i0, i2)["outputs"][0]
+    torch.cuda.synchronize()
+    assert _launched(before) == {"adacof": 1}
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_adacof_kernel_refuses_what_it_does_not_take(dev):
+    from vfidkr_torch.ops import adacof as AC
+    args = list(torch_adacof.inputs(dev, 1, 8, 8, 3, "tamed", seed=1))
+    grad = [a.clone().requires_grad_(True) if k == 1 else a
+            for k, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        AC.adacof_pair(*grad, 1)
+    four = list(args)
+    four[0] = four[4] = torch.rand(1, 4, 8, 8, device=dev)
+    with pytest.raises(ValueError, match="3 channels"):
+        AC.adacof_pair(*four, 1)
+    moved = list(args)
+    moved[8] = moved[8].cpu()
+    with pytest.raises(ValueError, match="different devices"):
+        AC.adacof_pair(*moved, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = list(args)
+        strided[1] = strided[1].transpose(2, 3).contiguous().transpose(2, 3)
+        AC.adacof_pair(*strided, 1)

@@ -12,8 +12,10 @@ last input written as frame ``n_in``; ``--video-out`` encodes a video at
 
 ``--model DAIN`` synthesises the middle frame (``--time-step 0.5`` only);
 ``--model DAIN_slowmotion`` synthesises ``1 / time_step - 1`` frames a
-pair; ``--model SepConv`` (Niklaus et al., ICCV 2017) and ``--model
-SoftSplat`` (Niklaus and Liu, CVPR 2020) the middle frame, in float32.  ``--compute-dtype bfloat16`` selects the fast-eval lane.  The
+pair; ``--model SepConv`` (Niklaus et al., ICCV 2017), ``--model
+SoftSplat`` (Niklaus and Liu, CVPR 2020) and ``--model AdaCoFPlus`` (Lee et
+al., CVPR 2020; F = 11, D = 2) the middle frame, in float32.
+``--compute-dtype bfloat16`` selects the fast-eval lane.  The
 weights are random (seed 0) unless ``--torch-checkpoint`` (a reference
 ``.pth``) or ``--checkpoint`` (a checkpoint of the port's trainer) is
 given; both are read by ``vfidkr_torch.training.load_weights``, which loads
@@ -29,9 +31,10 @@ exchange (``vfidkr_torch.parallel.spatial``, one thread a shard): the first
 n cards, or n threads on the CPU with ``--device cpu``; like JAX's, it is
 the tiled approximation of the whole-frame forward, for frames that do not
 fit on one card.  ``outputs[--save-which]`` (0 the blend, 1 the rectified;
-by default the network's last output: DAIN's rectified frames, SepConv's
-and SoftSplat's only one) is unpadded, clipped to [0, 1] and rounded to the 8-bit grid on
-the device, and a pair's frames are copied to the host at once.
+by default the network's last output: DAIN's rectified frames, SepConv's,
+SoftSplat's and AdaCoFPlus's only one) is unpadded, clipped to [0, 1] and
+rounded to the 8-bit grid on the device, and a pair's frames are copied to
+the host at once.
 The forward runs under ``torch.inference_mode()``.  PNG frames are read
 and written without PIL (``vfidkr_torch.utils.image_io``); JPEG input needs
 PIL.  Decoding runs ahead on a prefetch thread
@@ -50,7 +53,8 @@ Left out of JAX's flags: ``--depth-impl packed`` (a TPU workaround).
 Usage:
   python -m vfidkr_torch.apps.interpolate_video --frames-dir in/ \\
       --out-dir out/ [--time-step 0.25 --model DAIN_slowmotion | --model
-      SepConv | --model SoftSplat] [--compute-dtype bfloat16]
+      SepConv | --model SoftSplat | --model AdaCoFPlus]
+      [--compute-dtype bfloat16]
       [--torch-checkpoint best.pth]
       [--device cuda] [--spatial-shards 2 --halo 64]
   python -m vfidkr_torch.apps.interpolate_video --video-in clip.mp4 \\

@@ -29,8 +29,10 @@ import torch
 if TYPE_CHECKING:
     from vfidkr_torch.training.train_state import TrainConfig
 
-NET_NAMES = ("DAIN", "DAIN_slowmotion", "SepConv", "SoftSplat")
-# the networks the trainer trains (SepConv and SoftSplat are evaluation only)
+NET_NAMES = ("DAIN", "DAIN_slowmotion", "SepConv", "SoftSplat",
+             "AdaCoFPlus")
+# the networks the trainer trains (SepConv, SoftSplat and AdaCoFPlus are
+# evaluation only)
 TRAIN_NET_NAMES = ("DAIN", "DAIN_slowmotion")
 
 
@@ -45,7 +47,7 @@ def _fixed_time_step(net_name: str) -> float | None:
 class ModelConfig:
     """netName / time_step (``my_args.py:14-38``) and the compute dtype.  A
     network that interpolates at one time step only (DAIN, SepConv,
-    SoftSplat: t = 0.5) refuses any other."""
+    SoftSplat, AdaCoFPlus: t = 0.5) refuses any other."""
     net_name: str = "DAIN"
     time_step: float = 0.5
     compute_dtype: str = "float32"
@@ -61,8 +63,10 @@ class ModelConfig:
               ) -> torch.nn.Module:
         """The model, with seeded random weights (``generator``), built by
         ``models.build_model``.  A network whose class sets
-        ``CUDNN_BENCHMARK`` (SepConv) turns cuDNN's autotuner on for the
-        process here, once, before any forward or shard thread runs."""
+        ``CUDNN_BENCHMARK`` (SepConv and AdaCoFPlus, whose full-size heads
+        need it) turns cuDNN's autotuner on for the whole process here,
+        once, before any forward or shard thread runs; a model built
+        after it in the same process inherits the setting."""
         from vfidkr_torch.models import build_model
         kwargs = dict(generator=generator, compute_dtype=self.compute_dtype)
         if _fixed_time_step(self.net_name) is None:
@@ -98,7 +102,7 @@ class EvalConfig:
     """save_which and the padding policy (``my_args.py:40``;
     ``demo_MiddleBury.py:294``)."""
     # 0: blended, 1: rectified; -1, the last, is DAIN's rectified frame and
-    # SepConv's and SoftSplat's one output
+    # SepConv's, SoftSplat's and AdaCoFPlus's one output
     save_which: int = -1
     pad_multiple: int = 128
     min_pad: int = 32
@@ -156,7 +160,8 @@ def add_save_which_flag(ap) -> None:
     ap.add_argument("--save-which", type=int, default=EvalConfig.save_which,
                     help="0: blended output, 1: rectified; default -1, the "
                          "network's last output (DAIN's rectified frame, "
-                         "SepConv's and SoftSplat's only one)")
+                         "SepConv's, SoftSplat's and AdaCoFPlus's only "
+                         "one)")
 
 
 def add_device_flag(ap) -> None:

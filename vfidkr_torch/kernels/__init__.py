@@ -6,7 +6,7 @@ wrapper under ``vfidkr_torch/ops`` launches its kernel through it.
 ``LAUNCHES[name]`` is a plain integer that ``launch`` raises by one each time
 it launches kernel ``name``, and nowhere else, so a run can show that its
 main path went through the kernels.  It counts every kernel: the entry
-points of K1-K7 in ``KERNELS`` and K8-K13 in ``UNRECORDED``.
+points of K1-K7 in ``KERNELS`` and K8-K14 in ``UNRECORDED``.
 ``reset_launches`` sets every count to 0.  The counts are raised under a
 lock: the shards of a row-sharded forward (``vfidkr_torch.parallel.spatial``)
 launch from threads of their own.
@@ -16,7 +16,7 @@ keeps its name and arguments, so that a check can hold every launch of a run
 to the kernel's plain version on the same inputs.  The launches of
 ``UNRECORDED`` are counted and not recorded: the benchmark turns every
 record into a roofline bound (``benchmark/lib/work.kernel_work``), which has
-no work count for K8-K13 and raises on them.
+no work count for K8-K14 and raises on them.
 
 ``sm_count`` gives a device's SM count, from which the wrappers of K10 and
 K11 plan their tiles and splits.
@@ -37,7 +37,7 @@ KERNELS = ("filter_interpolate_fwd", "flow_project_scatter",
            "flow_project_scatter_bwd", "filter_interpolate_ctx",
            "fused_resblocks", "depth_flow_project_bwd")
 UNRECORDED = ("rectify_head", "sepconv_pair", "dense_conv", "flow_head",
-              "softmax_splat", "correlation", "correlation_bwd")
+              "softmax_splat", "correlation", "correlation_bwd", "adacof")
 LAUNCHES = dict.fromkeys(KERNELS + UNRECORDED, 0)
 _LOCK = threading.Lock()
 _RECORDS: list | None = None

@@ -80,6 +80,10 @@ SIGNATURES = {
     # f1, f2, out, g, grad_f1 (or NULL), grad_f2 (or NULL), n, c, h, w,
     # stream (K13's backward)
     "vfidkr_correlation_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # i0, w0, a0, b0, i2, w2, a2, b2, occ, out, n, h, w, taps a side, dilation,
+    # stream (K14, ops/adacof.py)
+    "vfidkr_adacof": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _P],
 }
 
 _LIB = None

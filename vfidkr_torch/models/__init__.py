@@ -1,8 +1,9 @@
-"""DAIN, DAIN_slowmotion, SepConv and SoftSplat networks, NCHW (see
-``vfidkr_torch/__init__.py``), and the name-keyed model lookup of
+"""DAIN, DAIN_slowmotion, SepConv, SoftSplat and AdaCoF+ networks, NCHW
+(see ``vfidkr_torch/__init__.py``), and the name-keyed model lookup of
 ``vfidkr_tpu/models/__init__.py`` (reference ``networks/__init__.py``),
-which adds SepConv and SoftSplat to the JAX package's two."""
+which adds SepConv, SoftSplat and AdaCoF+ to the JAX package's two."""
 
+from vfidkr_torch.models.adacof import AdaCoFPlus
 from vfidkr_torch.models.dain import DAIN, DAINSlowMotion
 from vfidkr_torch.models.megadepth import MegaDepthHourglass
 from vfidkr_torch.models.mononet import BranchHead, MonoNet5
@@ -18,6 +19,7 @@ MODEL_REGISTRY = {
     "DAIN_slowmotion": DAINSlowMotion,
     "SepConv": SepConv,
     "SoftSplat": SoftSplat,
+    "AdaCoFPlus": AdaCoFPlus,
 }
 
 
@@ -30,7 +32,7 @@ def build_model(name: str, **kwargs):
     return MODEL_REGISTRY[name](**kwargs)
 
 
-__all__ = ["DAIN", "DAINSlowMotion", "BranchHead", "MegaDepthHourglass",
+__all__ = ["AdaCoFPlus", "DAIN", "DAINSlowMotion", "BranchHead", "MegaDepthHourglass",
            "MonoNet5", "MultipleBasicBlock", "PWCDCNet", "ResBasicBlock",
            "S2DF", "SepConv", "SoftSplat", "multiple_basic_block_4", "s2df_3dense",
            "MODEL_REGISTRY",

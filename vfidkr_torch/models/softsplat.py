@@ -50,7 +50,7 @@ from torch import nn
 from vfidkr_torch.models.dain import DIV_FLOW
 from vfidkr_torch.models.layers import conv, lane_dtype, upsample_bilinear
 from vfidkr_torch.models.pwcnet import PWCDCNet
-from vfidkr_torch.models.sepconv import Upsample2x
+from vfidkr_torch.models.unet import Upsample2x
 from vfidkr_torch.ops.softsplat import softmax_splat
 from vfidkr_torch.ops.warp import backwarp
 from vfidkr_torch.utils.profiling import span
